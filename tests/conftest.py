@@ -27,6 +27,11 @@ import pytest  # noqa: E402
 VECTORS = os.path.join(os.path.dirname(__file__), "vectors")
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (skips without one)")
+
+
 @pytest.fixture(scope="session")
 def vectors():
     def load(name):
