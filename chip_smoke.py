@@ -5,27 +5,47 @@
 
 Phases, each asserting (any failure ends the run with a nonzero exit):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the voiced_sums kernel from mbe_tpu_torch/csrc/voiced.cu;
-  3. the kernel against its plain PyTorch version on the card at
+  2. build both kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu) and
+     soft_decode (csrc/softecc.cu), one nvcc each, started together;
+  3. voiced_sums against its plain PyTorch version on the card at
      C = 16, 1000 and 32768: max |err| / max |ref| < 2e-4, both timed;
+  3b. soft_decode against its plain version for the three codebooks at
+     R = 16, 1000 and 98304 rows (random, constant-7 and zero
+     reliabilities): keys equal; both timed at the three launches of a
+     soft imbe7200 step at C = 32768;
   4. the golden vectors through the port's pipeline on the card:
-     e2e_imbe7200 (C=16, T=40) by `step` and long_imbe7200 (C=4, T=200)
-     by `run_sequence` — imbe_d bits, error counts and flags bit-exact,
-     >= 60 dB PCM SNR per frame and lane, >= 60 dB for the int16 stream;
-  5. the main path at full width: C = 32768 channels of random hard
-     frames through `run_sequence` at T = 8 and T = 48; ms per frame step
-     is the slope between the two (it cancels the fixed per-run cost).
+     e2e_imbe7200, e2e_imbe7200_soft, e2e_imbe7100, e2e_imbe7100_soft
+     (C=16, T=40) by `step`, long_imbe7200 and long_imbe7100 (C=4,
+     T=200) by `run_sequence` — imbe_d bits, error counts and flags
+     bit-exact, >= 60 dB PCM SNR per frame and lane, >= 60 dB for the
+     int16 stream; soft_decode launched 3 times per soft frame;
+  5. the main paths at full width: C = 32768 channels of random hard
+     frames, then of random soft frames (hard bits and reliabilities
+     0..255), through `run_sequence` at T = 8 and T = 48, SCALE_REPS
+     runs each; ms per frame step is the slope between the fastest runs
+     of the two (it cancels the fixed per-run cost). Each run's wall and
+     process CPU seconds are printed. Random frames are mostly error
+     frames, but the step's work does not depend on frame content: B2
+     searches every codeword, and every FSM branch is computed and then
+     selected lane by lane.
 
-The kernel launch counter is zeroed just before phase 5 and read just
-after it. The last lines are the kernels JSON, the card, and
-{"ok": true, "device": {...}}. There is no CPU path: without a CUDA
-device, or without the package beside this script, it exits nonzero.
+Every kernel launch counter is zeroed just before each phase-5 path and
+read just after it. `bound_ms` in the kernels JSON is the least time the
+card could take for the function on this run's inputs: the larger of the
+bytes it must move over the memory rate and its operations of each type
+over that type's peak rate (H100 SXM data sheet, dense). The operations
+are those the function needs, not those of the port's kernel design; the
+design's own FP32 floor is printed beside it. The last lines are the
+kernels JSON, the card, and {"ok": true, "device": {...}}. There is no
+CPU path: without a CUDA device, or without the package beside this
+script, it exits nonzero.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -39,6 +59,13 @@ SNR_MIN_DB = 60.0      # the reference's float-synthesis bar (tests/test_e2e.py)
 KERNEL_C = (16, 1000, 32768)
 SCALE_C = 32768        # bench.py's default channel count
 SCALE_T = (8, 48)
+SOFT_R = (16, 1000, 3 * SCALE_C)
+PLAIN_ROWS = 16384     # row chunk of the plain soft decode ([rows, 4096] tensors)
+SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of each
+HBM_BYTES_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
+BF16_FLOP_S = 989e12   # tensor cores, bf16 in, FP32 accumulate
+COSF_OPS = 30          # FP32 instructions of one precise cosf (estimate)
 
 
 def card():
@@ -101,7 +128,103 @@ def phase_kernel(voiced, device):
               f"kernel {ms!r} ms, plain {plain_ms!r} ms")
         assert rel < KERNEL_TOL, f"C={c}: relative error {rel} >= {KERNEL_TOL}"
         worst_abs = max(worst_abs, abs_err)
-    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms)
+    # at the last (full) width: six [56,C] and five [7,C] inputs, two
+    # windows and a [160,C] output. The function's least FP32 work per
+    # channel is the TPU kernel's (mbe_tpu/ops/pallas/voiced.py:99-119,
+    # 168-189): 3 cosf per harmonic of the two 56-harmonic banks and 6 per
+    # interpolated harmonic to seed the oscillators, then per sample one
+    # FMA (Chebyshev step) and one add (sum) per bank harmonic, 10 ops of
+    # the double rotor and amplitude per interpolated harmonic, and 3 for
+    # the windows.
+    nbytes = 4 * (6 * 56 * c + 5 * 7 * c + 2 * 160 + 160 * c)
+    ops = c * ((3 * 2 * 56 + 6 * 7) * COSF_OPS + 160 * (2 * 2 * 56 + 10 * 7 + 3))
+    # this kernel's design restarts the recurrence every 16 samples and
+    # evaluates the interpolated harmonics directly: 4480 cosf per channel
+    design_ms = c * (4480 * COSF_OPS + 2 * 56 * 160 * 2) / FP32_OPS_S * 1e3
+    b = bound(nbytes, fp32_ops=ops)
+    print(f"kernel voiced_sums C={c}: bound {b['bound_ms']!r} ms ({b['bound_by']}); "
+          f"FP32 floor of this design {design_ms!r} ms")
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **b)
+
+
+def bound(nbytes, fp32_ops=0, bf16_flops=0):
+    """The least time for `nbytes` moved, `fp32_ops` FP32 lane-ops on the
+    CUDA cores and `bf16_flops` on the tensor cores (the two units run
+    side by side, so the slower one sets it), and which of bytes or
+    operations sets it."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = max(fp32_ops / FP32_OPS_S, bf16_flops / BF16_FLOP_S) * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                library_ms=None)
+
+
+def soft_inputs(ecc, softecc, code, rows, device):
+    """Random bits; reliabilities random for half the rows, 7 for a
+    quarter and 0 for the last quarter (the tie-break cases); idx_hard
+    from the port's hard decoder, as the main path makes it."""
+    n = softecc.CODES[code].n
+    rng = np.random.default_rng(SEED + rows)
+    rel = rng.integers(0, 256, (rows, n))
+    rel[rows // 2:] = 7
+    rel[3 * rows // 4:] = 0
+    bits = torch.as_tensor(rng.integers(0, 2, (rows, n)), dtype=torch.int32, device=device)
+    return (bits, torch.as_tensor(rel, dtype=torch.int32, device=device),
+            ecc.hard_index(bits, code))
+
+
+def phase_softecc(ecc, softecc, device):
+    """Keys equal at every (code, rows); kernel and plain timed at the
+    launches of one soft imbe7200 step at C = SCALE_C (and the 7100
+    Hamming launch, printed only)."""
+    def plain(bits, rel, idx, code):
+        return torch.cat([softecc.soft_decode_keys_reference(
+            bits[lo:lo + PLAIN_ROWS], rel[lo:lo + PLAIN_ROWS], idx[lo:lo + PLAIN_ROWS], code)
+            for lo in range(0, bits.shape[0], PLAIN_ROWS)])
+
+    worst = 0
+    for code in softecc.CODES:
+        for rows in SOFT_R:
+            args = soft_inputs(ecc, softecc, code, rows, device)
+            key = softecc.soft_decode_keys(*args, code)
+            torch.cuda.synchronize()
+            err = (key.long() - plain(*args, code).long()).abs().max().item()
+            print(f"kernel soft_decode {code} R={rows}: max |key - plain key| = {err}")
+            assert err == 0, f"soft_decode {code} R={rows}: keys differ"
+            worst = max(worst, err)
+
+    step = [("golay", SCALE_C), ("golay", 3 * SCALE_C), ("hamstd", 3 * SCALE_C)]
+    total = dict(ms=0.0, plain_ms=0.0, nbytes=0, fp32_ops=0, bf16_flops=0, design=0)
+    for code, rows in step + [("ham7100", 2 * SCALE_C)]:
+        args = soft_inputs(ecc, softecc, code, rows, device)
+        ms = cuda_ms(lambda: softecc.soft_decode_keys(*args, code), 10)
+        plain_ms = cuda_ms(lambda: plain(*args, code), 2)
+        spec = softecc.CODES[code]
+        ncw = softecc.table(spec.codebook, device).shape[0]
+        # bits and rel read, idx_hard read, keys written. The function's
+        # least work per (row, codeword): the product [q | h | hsum | 1] @
+        # codeword table, exact in bf16 with FP32 accumulation (operands
+        # <= 255, sums < 2^18; the TPU kernel's MXU form), of n + (n -
+        # data_lo) + 2 MACs, then one min of the key on the CUDA cores.
+        work = dict(nbytes=rows * (8 * spec.n + 8), fp32_ops=rows * ncw,
+                    bf16_flops=2 * rows * ncw * (2 * spec.n - spec.data_lo + 2))
+        # this kernel's design: n+1 FP32 FMAs and a min per (row, codeword)
+        design = rows * ncw * (spec.n + 2)
+        b = bound(**work)
+        print(f"kernel soft_decode {code} R={rows}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
+              f"bound {b['bound_ms']!r} ms ({b['bound_by']}), FP32 floor of this design "
+              f"{design / FP32_OPS_S * 1e3!r} ms")
+        if (code, rows) in step:
+            total["ms"] += ms
+            total["plain_ms"] += plain_ms
+            total["design"] += design
+            for k in work:
+                total[k] += work[k]
+    b = bound(total["nbytes"], total["fp32_ops"], total["bf16_flops"])
+    print(f"kernel soft_decode per soft imbe7200 step at C={SCALE_C}: kernel {total['ms']!r} ms, "
+          f"plain {total['plain_ms']!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}), "
+          f"FP32 floor of this design {total['design'] / FP32_OPS_S * 1e3!r} ms [{card()}]")
+    return dict(max_abs_err=worst, ms=total["ms"], plain_ms=total["plain_ms"], **b)
 
 
 def check_outputs(name, vec, pcm, res, dbits=None):
@@ -127,68 +250,94 @@ def check_outputs(name, vec, pcm, res, dbits=None):
     assert s16 >= SNR_MIN_DB, f"{name}: int16 stream {s16} dB"
 
 
-def phase_goldens(pipeline, init_state, voiced, device):
-    vec = dict(np.load(VECTORS / "e2e_imbe7200.npz"))
+def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=False):
+    """One golden vector through `step` (or `run_sequence`) on the card."""
+    voiced, softecc = kernels
+    vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
     state = init_state(C, rng_seed=vec["seeds"], device=device)
     frames = torch.as_tensor(vec["frames"], device=device)
-    before = voiced.LAUNCHES
-    pcm, res, dbits = [], [], []
-    for t in range(T):
-        state, audio, r, d = pipeline.step("imbe7200", frames[t], state)
-        pcm.append(audio)
-        res.append(r)
-        dbits.append(d.cpu().numpy())
-    assert voiced.LAUNCHES - before >= T, "e2e: voiced kernel not launched per frame"
-    check_outputs("e2e_imbe7200", vec, torch.stack(pcm),
-                  {k: torch.stack([r[k] for r in res]) for k in res[0]},
-                  np.stack(dbits))
+    rel = torch.as_tensor(vec["rel"], device=device) if soft else None
+    before = (voiced.LAUNCHES, softecc.LAUNCHES)
+    if sequence:
+        state, pcm, res = pipeline.run_sequence(codec, frames, state, rel)
+        dbits = None
+    else:
+        pcm, res, dbits = [], [], []
+        for t in range(T):
+            state, audio, r, d = pipeline.step(codec, frames[t], state,
+                                               None if rel is None else rel[t])
+            pcm.append(audio)
+            res.append(r)
+            dbits.append(d.cpu().numpy())
+        pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
+                           np.stack(dbits))
+    assert voiced.LAUNCHES - before[0] >= T, f"{name}: voiced kernel not launched per frame"
+    b2 = softecc.LAUNCHES - before[1]
+    assert b2 == (3 * T if soft else 0), f"{name}: soft_decode launched {b2} times in {T} frames"
+    check_outputs(name, vec, pcm, res, dbits)
 
-    vec = dict(np.load(VECTORS / "long_imbe7200.npz"))
-    T, C = vec["frames"].shape[:2]
-    state = init_state(C, rng_seed=vec["seeds"], device=device)
-    before = voiced.LAUNCHES
-    state, pcm, res = pipeline.run_sequence(
-        "imbe7200", torch.as_tensor(vec["frames"], device=device), state)
-    assert voiced.LAUNCHES - before >= T, "long: voiced kernel not launched per frame"
-    check_outputs("long_imbe7200", vec, pcm, res)
+
+def phase_goldens(pipeline, init_state, kernels, device):
+    for name, codec, soft in (("e2e_imbe7200", "imbe7200", False),
+                              ("e2e_imbe7200_soft", "imbe7200", True),
+                              ("e2e_imbe7100", "imbe7100", False),
+                              ("e2e_imbe7100_soft", "imbe7100", True)):
+        golden(pipeline, init_state, kernels, device, name, codec, soft)
+    for name, codec in (("long_imbe7200", "imbe7200"), ("long_imbe7100", "imbe7100")):
+        golden(pipeline, init_state, kernels, device, name, codec, False, sequence=True)
 
 
-def phase_scale(pipeline, init_state, voiced, device):
+def phase_scale(pipeline, init_state, kernels, device, soft, reps=SCALE_REPS):
+    """One main path at C = SCALE_C: the slope between the fastest of
+    `reps` T = 8 and T = 48 runs, with every launch counter zeroed before
+    it and read after it."""
+    voiced, softecc = kernels
     rng = np.random.default_rng(SEED)
     t_max = max(SCALE_T)
     frames = torch.as_tensor(
         rng.integers(0, 2, (t_max, SCALE_C, 8, 23), dtype=np.int8), device=device)
+    rel = (torch.as_tensor(rng.integers(0, 256, (t_max, SCALE_C, 8, 23), dtype=np.uint8),
+                           device=device) if soft else None)
+    path = "imbe7200 soft" if soft else "imbe7200 hard"
 
     def run(T):
         state = init_state(SCALE_C, carry_enh=False, device=device)
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, pcm, res = pipeline.run_sequence("imbe7200", frames[:T], state)
+        t0, c0 = time.perf_counter(), time.process_time()
+        state, pcm, res = pipeline.run_sequence("imbe7200", frames[:T], state,
+                                                None if rel is None else rel[:T])
         total = pcm.sum().item()  # consume the PCM; .item() synchronizes
-        dt = time.perf_counter() - t0
+        dt, cpu = time.perf_counter() - t0, time.process_time() - c0
         assert pcm.shape == (T, SCALE_C, 160)
         assert np.isfinite(total) and bool(torch.isfinite(pcm).all())
         assert bool((res["status"] == 0).all())
-        return dt
+        return dt, cpu
 
     torch.cuda.reset_peak_memory_stats(device)
     voiced.LAUNCHES = 0
+    softecc.LAUNCHES = 0
     run(2)  # warm-up: device tables, allocator
     times = {T: [] for T in SCALE_T}
-    for _ in range(2):
+    cpu = {T: [] for T in SCALE_T}
+    for _ in range(reps):
         for T in SCALE_T:
-            times[T].append(run(T))
-    launches = voiced.LAUNCHES
-    assert launches == 2 + 2 * sum(SCALE_T), f"voiced kernel launched {launches} times"
+            dt, c = run(T)
+            times[T].append(dt)
+            cpu[T].append(c)
+    launches = dict(voiced_sums=voiced.LAUNCHES, soft_decode=softecc.LAUNCHES)
+    steps = 2 + reps * sum(SCALE_T)
+    assert launches["voiced_sums"] == steps, f"{path}: voiced kernel launched {launches}"
+    assert launches["soft_decode"] == (3 * steps if soft else 0), \
+        f"{path}: soft_decode launched {launches}"
     peak = torch.cuda.max_memory_allocated(device)
 
     dn = SCALE_T[1] - SCALE_T[0]
     slope = (min(times[SCALE_T[1]]) - min(times[SCALE_T[0]])) / dn
-    print(f"scale C={SCALE_C}: run seconds {times!r}")
-    print(f"scale C={SCALE_C}: slope({SCALE_T[0]},{SCALE_T[1]}) {slope * 1e3!r} ms/frame-step, "
-          f"{SCALE_C / slope!r} frames/s, peak memory {peak / 2**30!r} GiB "
-          f"[{card()}]")
+    print(f"scale {path} C={SCALE_C}: run wall seconds {times!r}, process CPU seconds {cpu!r}")
+    print(f"scale {path} C={SCALE_C}: slope({SCALE_T[0]},{SCALE_T[1]}) {slope * 1e3!r} "
+          f"ms/frame-step, {SCALE_C / slope!r} frames/s, peak memory {peak / 2**30!r} GiB, "
+          f"kernel launches {launches} over {steps} steps [{card()}]")
     return launches
 
 
@@ -200,7 +349,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     from mbe_tpu_torch import pipeline
     from mbe_tpu_torch.models.state import init_state
-    from mbe_tpu_torch.ops.cuda import voiced
+    from mbe_tpu_torch.ops import ecc
+    from mbe_tpu_torch.ops.cuda import softecc, voiced
 
     device = torch.device("cuda", 0)
     card_line = card()
@@ -208,19 +358,28 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
+    kernels = (voiced, softecc)
     t0 = time.perf_counter()
-    voiced.load_library()
-    print(f"build voiced_sums: {time.perf_counter() - t0!r} s")
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        for fut in [pool.submit(k.load_library) for k in kernels]:
+            fut.result()
+    print(f"build voiced_sums + soft_decode: {time.perf_counter() - t0!r} s")
 
-    k = phase_kernel(voiced, device)
-    phase_goldens(pipeline, init_state, voiced, device)
-    launches = phase_scale(pipeline, init_state, voiced, device)
+    k_voiced = phase_kernel(voiced, device)
+    k_soft = phase_softecc(ecc, softecc, device)
+    phase_goldens(pipeline, init_state, kernels, device)
+    hard = phase_scale(pipeline, init_state, kernels, device, soft=False)
+    soft = phase_scale(pipeline, init_state, kernels, device, soft=True)
 
-    print(json.dumps({"kernels": [{
-        "name": "voiced_sums", "route": "cuda",
-        "source": "mbe_tpu_torch/csrc/voiced.cu",
-        "replaces": "mbe_tpu/ops/pallas/voiced.py:140",
-        "launches": launches, **k}]}))
+    print(json.dumps({"kernels": [
+        {"name": "voiced_sums", "route": "cuda",
+         "source": "mbe_tpu_torch/csrc/voiced.cu",
+         "replaces": "mbe_tpu/ops/pallas/voiced.py:140",
+         "launches": hard["voiced_sums"], **k_voiced},
+        {"name": "soft_decode", "route": "cuda",
+         "source": "mbe_tpu_torch/csrc/softecc.cu",
+         "replaces": "mbe_tpu/ops/pallas/softecc.py:128",
+         "launches": soft["soft_decode"], **k_soft}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

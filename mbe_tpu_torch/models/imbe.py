@@ -1,9 +1,12 @@
-"""IMBE 7200x4400 frame ECC/demod, IMBE 4400 parameter decode and the
-frame FSM (port of mbe_tpu.models.imbe, hard 7200 path).
+"""IMBE 7200x4400 and 7100x4400 frame ECC/demod, the 7100 -> 7200
+conversion, IMBE 4400 parameter decode and the frame FSM (port of
+mbe_tpu.models.imbe).
 
 The per-L bit-allocation scatter (bo/ba/hoba/ImbeJi, 48 layouts) becomes
 host tables indexed by L9 = L - 9 with gathers; every frame-type branch
-is a lane-wise select.
+is a lane-wise select. Hard and soft frame decoders end the same way:
+the decoded fields go straight into the field-forward packed words, and
+the [88, C] bit planes are expanded from them.
 """
 
 import dataclasses
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import demod, ecc, noise
-from ..ops.bits import lookup
+from ..ops.bits import lookup, pack_descending
 from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
@@ -21,13 +24,28 @@ from .speech import synthesize_speech_core
 from .state import MUTING_THRESHOLD_IMBE, Parms, imbe_headroom_reset, select_cases
 
 _POW2_23 = np.array([1 << i for i in range(23)], np.int64)
+_POW2_24 = np.array([1 << i for i in range(24)], np.int64)
 
 # 7200-layout imbe_d fields (base, length): C0 data, 3x Golay data, 3x
 # Hamming data, 7 raw bits (imbe7200x4400.c:469-515). The packed words
 # store field bit t at position base+t ("field forward").
 _FIELDS_7200 = ((0, 12), (12, 12), (24, 12), (36, 12),
                 (48, 11), (59, 11), (70, 11), (81, 7))
+# 7100-layout fields before the conversion: C0 data (7), 3x Golay data,
+# 2x Hamming data, 23 raw bits (imbe7100x4400.c:313-378)
+_FIELDS_7100 = ((0, 7), (7, 12), (19, 12), (31, 12),
+                (43, 11), (54, 11), (65, 23))
 _NCOLS = 72  # 12 bb[1] voicing bits + 1 b2 + 5 gains + 54 HOC codes
+
+
+def _field_positions(fields):
+    """p[j] = packed position of imbe_d bit j: field bit ln-1-o of a field
+    at base is imbe_d[base+o] and sits at base+ln-1-o. An involution."""
+    p = np.zeros(88, np.int64)
+    for base, ln in fields:
+        for o in range(ln):
+            p[base + o] = base + (ln - 1 - o)
+    return p
 
 
 @lru_cache(maxsize=1)
@@ -85,12 +103,7 @@ def _decode_tables():
                     hoc_off[L9, slot] = np.float32(2.0) ** np.float32(Bm - 1)
                 m += 1
 
-    # imbe_d[base+o] of a field of length ln is field bit ln-1-o, which the
-    # field-forward words hold at base+t
-    p88 = np.zeros(88, np.int32)
-    for base, ln in _FIELDS_7200:
-        for o in range(ln):
-            p88[base + o] = base + (ln - 1 - o)
+    p88 = _field_positions(_FIELDS_7200)
     slot_pos, slot_col, slot_t = [], [], []
     for col in range(_NCOLS):
         for t in range(12):
@@ -176,16 +189,24 @@ def expand_imbe_d(words):
     return torch.cat(parts, dim=0).to(torch.int32)
 
 
+def _words_from_positions(bits):
+    """[88, C] bits in packed-position order -> 3x [C] int64 words."""
+    shifts = torch.arange(32, device=bits.device)[:, None]
+    return tuple((bits[lo:lo + 32] << shifts[:min(32, 88 - lo)]).sum(dim=0)
+                 for lo in (0, 32, 64))
+
+
+def _pack_fields(imbe_d, fields):
+    """[88, C] int bit planes -> the 3 field-forward packed words (int64)
+    of the given layout."""
+    src = torch.as_tensor(_field_positions(fields), device=imbe_d.device)
+    return _words_from_positions(imbe_d.to(torch.int64)[src])
+
+
 def pack_imbe_words(imbe_d):
     """[88, C] int bit planes -> the 3 field-forward packed words (int64):
     the inverse of expand_imbe_d."""
-    d = imbe_d.to(torch.int64)
-    words = [torch.zeros_like(d[0]) for _ in range(3)]
-    for base, ln in _FIELDS_7200:
-        for o in range(ln):
-            p = base + ln - 1 - o
-            words[p // 32] = words[p // 32] | (d[base + o] << (p % 32))
-    return tuple(words)
+    return _pack_fields(imbe_d, _FIELDS_7200)
 
 
 def _b0_from_words_7200(words):
@@ -288,13 +309,17 @@ def decode_imbe4400_parms(words, cur: Parms, prev: Parms):
     return cur_out, prev_out, bad
 
 
-def decode_imbe7200_frame(frame):
-    """Batched mbe_decodeImbe7200x4400Frame, hard bits.
+def decode_imbe7200_frame(frame, soft_rel=None):
+    """Batched mbe_decodeImbe7200x4400[Soft]Frame.
 
-    Args: frame [C, 8, 23] int bit planes.
+    Args: frame [C, 8, 23] int bit planes (hard bits, or the hard
+    decisions of soft input); soft_rel [C, 8, 23] int reliabilities
+    0..255, or None for the hard path.
     Returns: (imbe_d [88, C] int32, c0/protected/c4 errors [C] int32,
     words — the field-forward packed parameter bits, 3x [C] int64).
     """
+    if soft_rel is not None:
+        return _decode_imbe7200_frame_soft(frame.to(torch.int32), soft_rel.to(torch.int32))
     dev = frame.device
     pow2 = torch.as_tensor(_POW2_23, device=dev)
     w = (frame.to(torch.int64) * pow2).sum(dim=-1).T.to(torch.int32)  # [8, C]
@@ -318,11 +343,190 @@ def decode_imbe7200_frame(frame):
     return expand_imbe_d(words), c0_errs, perrs, c4_errs, words
 
 
+def _keystream(seed, count):
+    """[C, count] int32 demod keystream bits, channel-major (the soft
+    paths apply pr[:, k:k+w] to row bits w-1..0, so each slice is flipped)."""
+    return demod.prng_bits(seed, count).T.to(torch.int32)
+
+
+def _decode_imbe7200_frame_soft(f, soft_rel):
+    """Soft-decision 7200 decode: bit planes, channel-major, the three data
+    Golay and the three Hamming blocks batched into one decode each."""
+    c0_out, c0_errs = ecc.golay2312_soft(f[:, 0], soft_rel[:, 0])
+    c0d = pack_descending(c0_out, 22, 11)  # C0 data bits, seed of the demod PRNG
+    pr = _keystream(16 * c0d, 114)         # imbe7200x4400.c:648-656
+
+    rows, k = [], 0
+    for i in range(1, 4):
+        rows.append(f[:, i] ^ pr[:, k:k + 23].flip(-1))
+        k += 23
+    for i in range(4, 7):
+        rows.append(f[:, i, :15] ^ pr[:, k:k + 15].flip(-1))
+        k += 15
+    # demodulation flips hard decisions and keeps the reliabilities
+    g_out, g_errs = ecc.golay2312_soft(torch.stack(rows[:3], dim=1), soft_rel[:, 1:4])
+    h_out, h_errs = ecc.hamming1511_soft(torch.stack(rows[3:], dim=1), soft_rel[:, 4:7, :15])
+    perrs = (g_errs.sum(dim=1) + h_errs.sum(dim=1)).to(torch.int32)
+
+    g = pack_descending(g_out, 22, 11)     # [C, 3] data fields
+    h = pack_descending(h_out, 14, 4)
+    words = _words_from_fields_7200(c0d, g[:, 0], g[:, 1], g[:, 2], h[:, 0], h[:, 1],
+                                    h[:, 2], pack_descending(f[:, 7], 6, 0))
+    return expand_imbe_d(words), c0_errs, perrs, h_errs[:, 0], words
+
+
+@lru_cache(maxsize=1)
+def _conv7100_tables():
+    """mbe_convertImbe7100to7200 (imbe7100x4400.c:380-437) as a per-K
+    permutation: out[j] = in[perm[K][j]] for the 88-bit vector."""
+    perms = np.zeros((13, 88), np.int64)
+    for K in range(1, 13):
+        dst = np.zeros(88, np.int64)
+        dst[48 + K] = 42
+        dst[49 + K] = 43
+        k = 44
+        j = 48
+        for _ in range(K):
+            dst[j] = k
+            j += 1
+            k += 1
+        j = 0
+        k = 1
+        while j < 87:
+            dst[j] = k
+            j += 1
+            if j == 48:
+                j += K + 2
+            k += 1
+            if k == 42:
+                k += K + 2
+        perms[K] = dst
+    return perms
+
+
+@lru_cache(maxsize=None)
+def _conv7100_packed_src(device):
+    """[13, 88]: output 7200 field-forward position q reads 7100 packed
+    position src[K, q] (both layout maps are involutions)."""
+    perms = _conv7100_tables()
+    p72 = _field_positions(_FIELDS_7200)
+    p71 = _field_positions(_FIELDS_7100)
+    src = np.zeros((13, 88), np.int64)
+    for K in range(1, 13):
+        src[K] = p71[perms[K][p72]]
+    return torch.as_tensor(src, device=device)
+
+
+def _b0_from_words_7100(words):
+    """b0 from 7100-layout field-forward packed words: bits 1..6 of the
+    pre-convert imbe_d live at w0 bits 5..0 and bits 86..87 at w2 bits
+    2..1 (imbe7100x4400.c:389-395)."""
+    w0, _, w2 = words
+    return ((w0 & 63) << 2) | ((w2 >> 1) & 3)
+
+
+def convert_7100_to_7200_packed(words):
+    """mbe_convertImbe7100to7200 on field-forward packed words (3x [C] in,
+    3x [C] int64 out): the permutation of the lane's K, gathered per output
+    bit. Bit-exact."""
+    dev = words[0].device
+    K = lookup(table("imbe_K_by_b0", dev), torch.clamp(_b0_from_words_7100(words), 0, 207))
+    src = _conv7100_packed_src(dev)[torch.clamp(K, 1, 12).long()].T     # [88, C]
+    wstack = torch.stack([w.to(torch.int64) for w in words])           # [3, C]
+    bits = (torch.gather(wstack, 0, src >> 5) >> (src & 31)) & 1
+    return _words_from_positions(bits)
+
+
+def convert_7100_to_7200(imbe_d):
+    """Batched mbe_convertImbe7100to7200 (imbe7100x4400.c:380-437) on
+    [88, C] bit planes: packed, converted, expanded."""
+    return expand_imbe_d(convert_7100_to_7200_packed(_pack_fields(imbe_d, _FIELDS_7100)))
+
+
+def _words_7200_from_fields_7100(g0d, g1d, g2d, g3d, g4d, g5d, g6d):
+    """The 7100 fields (7/12/12/12/11/11/23 bits, at bit 0) -> the
+    converted 7200 field-forward words."""
+    g0d, g1d, g2d, g3d, g4d, g5d, g6d = (
+        x.to(torch.int64) for x in (g0d, g1d, g2d, g3d, g4d, g5d, g6d))
+    w71 = (g0d | (g1d << 7) | (g2d << 19) | ((g3d & 1) << 31),
+           (g3d >> 1) | (g4d << 11) | ((g5d & 0x3FF) << 22),
+           (g5d >> 10) | (g6d << 1))
+    return convert_7100_to_7200_packed(w71)
+
+
+def decode_imbe7100_frame(frame, soft_rel=None):
+    """Batched mbe_decodeImbe7100x4400[Soft]Frame (imbe7100x4400.c:439-516).
+
+    Args: frame [C, 7, 24] int bit planes; soft_rel [C, 7, 24] int
+    reliabilities 0..255, or None for the hard path.
+    Returns: (imbe_d [88, C] int32 in the 7200 layout, c0/protected/c4
+    errors [C] int32, the converted field-forward words 3x [C] int64).
+    """
+    if soft_rel is not None:
+        return _decode_imbe7100_frame_soft(frame.to(torch.int32), soft_rel.to(torch.int32))
+    pow2 = torch.as_tensor(_POW2_24, device=frame.device)
+    w = (frame.to(torch.int64) * pow2).sum(dim=-1).T.to(torch.int32)  # [7, C]
+
+    # C0: short Golay, 18 data bits at fr[0][1..18] zero-padded to 23; the
+    # corrected bits go back into fr[0][1..18]
+    c0w, c0_errs = ecc.golay2312_hard_packed((w[0] >> 1) & 0x3FFFF)
+    fr0 = (w[0] & ~0x7FFFE) | ((c0w & 0x3FFFF) << 1)
+
+    # demod PRNG seeded by fr[0] bits 18..12 (imbe7100x4400.c:302-311)
+    kw = demod.prng_keywords(16 * ((fr0 >> 12) & 0x7F), (24, 23, 23, 15, 15))
+    rw1 = (w[1] & 0xFFFFFF) ^ kw[0]
+    g_in = torch.stack([(rw1 >> 1) & 0x7FFFFF,
+                        (w[2] & 0x7FFFFF) ^ kw[1],
+                        (w[3] & 0x7FFFFF) ^ kw[2]])
+    g_out, g_errs = ecc.golay2312_hard_packed(g_in)
+    h_out, h_errs = ecc.hamming1511_hard_packed((w[4:6] & 0x7FFF) ^ kw[3:5], variant7100=True)
+    perrs = (g_errs.sum(dim=0) + h_errs.sum(dim=0)).to(torch.int32)
+
+    words = _words_7200_from_fields_7100(
+        (fr0 >> 12) & 0x7F, (g_out[0] >> 11) & 0xFFF, (g_out[1] >> 11) & 0xFFF,
+        (g_out[2] >> 11) & 0xFFF, (h_out[0] >> 4) & 0x7FF, (h_out[1] >> 4) & 0x7FF,
+        w[6] & 0x7FFFFF)
+    return expand_imbe_d(words), c0_errs, perrs, h_errs[0], words
+
+
+def _decode_imbe7100_frame_soft(f, soft_rel):
+    """Soft-decision 7100 decode, bit planes channel-major."""
+    c = f.shape[0]
+    # C0: short Golay, 18 data bits at fr[0][1..18] padded with 5 zeros of
+    # reliability 255; the corrected bits go back into fr[0][1..18]
+    pad = torch.zeros((c, 5), dtype=torch.int32, device=f.device)
+    c0_out, c0_errs = ecc.golay2312_soft(torch.cat([f[:, 0, 1:19], pad], dim=-1),
+                                         torch.cat([soft_rel[:, 0, 1:19], pad + 255], dim=-1))
+    fr0 = torch.cat([f[:, 0, :1], c0_out[:, :18], f[:, 0, 19:]], dim=-1)
+
+    g0d = pack_descending(fr0, 18, 12)      # seed of the demod PRNG
+    pr = _keystream(16 * g0d, 100)          # imbe7100x4400.c:302-311
+    rows = [(f[:, 1] ^ pr[:, 0:24].flip(-1))[:, 1:24]]
+    k = 24
+    for i in (2, 3):
+        rows.append(f[:, i, :23] ^ pr[:, k:k + 23].flip(-1))
+        k += 23
+    for i in (4, 5):
+        rows.append(f[:, i, :15] ^ pr[:, k:k + 15].flip(-1))
+        k += 15
+    g_rel = torch.stack([soft_rel[:, 1, 1:24], soft_rel[:, 2, :23], soft_rel[:, 3, :23]], dim=1)
+    g_out, g_errs = ecc.golay2312_soft(torch.stack(rows[:3], dim=1), g_rel)
+    h_out, h_errs = ecc.hamming1511_soft(torch.stack(rows[3:], dim=1), soft_rel[:, 4:6, :15],
+                                         variant7100=True)
+    perrs = (g_errs.sum(dim=1) + h_errs.sum(dim=1)).to(torch.int32)
+
+    g = pack_descending(g_out, 22, 11)      # [C, 3]
+    h = pack_descending(h_out, 14, 4)       # [C, 2]
+    words = _words_7200_from_fields_7100(g0d, g[:, 0], g[:, 1], g[:, 2], h[:, 0], h[:, 1],
+                                         pack_descending(f[:, 6], 22, 0))
+    return expand_imbe_d(words), c0_errs, perrs, h_errs[:, 0], words
+
+
 def process_imbe4400(words, total_errors, c0_errors, c4_errors,
                      cur: Parms, prev: Parms, enh: Parms, comfort_rng,
                      lcg_prime):
     """Batched mbe_processImbe4400Dataf (imbe7200x4400.c:780-888) for the
-    hard path, where the C0 and C4 counts are always valid.
+    IMBE frame decoders, whose C0 and C4 counts are always valid.
 
     Returns: (audio [160, C] f32, cur', prev', enh', comfort_rng',
     lcg_prime', flags dict of [C] bool: repeat, mute).

@@ -117,7 +117,7 @@ def _default_parms(c: int, device) -> Parms:
 
 
 def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
-               device="cpu") -> ChannelState:
+               device="cuda") -> ChannelState:
     """mbe_initMbeParms for a batch of channels (+ RNG state) on `device`.
 
     rng_seed: optional [C] (or scalar) uint32 seed, the equivalent of
@@ -125,9 +125,13 @@ def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
     Java Random is seeded with it and the LCG prime is seed % 53125. None
     leaves the RNGs on their unseeded defaults (Java Random 0x12345678,
     LCG 3147). carry_enh=False drops the prev_mp_enhanced copy (IMBE-only
-    streams).
+    streams). The state goes on the GPU unless the caller names another
+    device (device="cpu" runs the plain PyTorch path); without a GPU the
+    default raises.
     """
     device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("init_state: no CUDA device; pass device='cpu' for CPU state")
     p = _default_parms(channels, device)
     if rng_seed is None:
         comfort = noise.java_random_init(torch.full(

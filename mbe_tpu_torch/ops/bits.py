@@ -1,4 +1,5 @@
-"""Bit validation and table lookup (port of mbe_tpu.ops.bits)."""
+"""Bit validation, table lookup, packing and soft-bit helpers (port of
+mbe_tpu.ops.bits)."""
 
 import torch
 
@@ -15,3 +16,30 @@ def lookup(table, idx):
     mbe_tpu.ops.bits.lut1d, which builds the same lookup from compares
     because gathers are slow on a TPU)."""
     return table[torch.clamp(idx, 0, table.shape[0] - 1).long()]
+
+
+def pack_msb_first(bits, indices):
+    """mbe_bits_by_index_to_int (mbe_bitpack.h:11-19): MSB-first pack of
+    bits[..., indices] into int32."""
+    idx = torch.as_tensor(indices, dtype=torch.long, device=bits.device)
+    shifts = torch.arange(len(idx) - 1, -1, -1, device=bits.device)
+    return ((bits[..., idx].to(torch.int32) << shifts).sum(dim=-1)).to(torch.int32)
+
+
+def pack_descending(bits, high, low=0):
+    """mbe_bits_descending_to_int (mbe_bitpack.h:21-27): value from
+    bits[..., high..low], bit `high` is the MSB."""
+    return pack_msb_first(bits, range(high, low - 1, -1))
+
+
+def soft_bit_from_llr(llr):
+    """mbe_softBitFromLlr (mbelib.c:125-132): llr > 0 -> bit 1;
+    reliability = clamp(|llr|, 0, 255). Returns (bit, reliability) int32."""
+    llr = torch.as_tensor(llr).to(torch.int32)
+    return (llr > 0).to(torch.int32), torch.clamp(llr.abs(), 0, 255)
+
+
+def soft_bits_from_hard(bits, reliability=255):
+    """mbe_softBitsFromHard (mbelib.c:134-147)."""
+    b = torch.as_tensor(bits).to(torch.int32)
+    return b, torch.full_like(b, reliability)

@@ -1,0 +1,144 @@
+"""Soft-decision ML ECC decode: the hand-written CUDA kernel
+(csrc/softecc.cu) and its plain PyTorch version.
+
+For each row r of hard bits, reliabilities 0..255 and the codeword index
+of the row's hard decode, the winning key over every codeword c is
+
+    key = (score << s_score) | ((c != idx_hard) << s_match)
+          | (diffs << s_diff) | c
+    score = sum_i rel_i * [bit_i != cw_i]
+    diffs = Hamming distance of bits[data_lo:] from cw[data_lo:]
+
+an int32 whose order is the reference's tie-break (ecc.c:54-67). The
+codebooks are index-systematic (codeword index == data word), so the
+winner's index and diffs unpack from the key by shifts.
+`soft_decode_keys` runs the plain version for CPU tensors and launches
+the kernel for CUDA tensors; there is no fallback between the two.
+"""
+
+import ctypes
+import dataclasses
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from ...tables import T, table
+from . import build
+
+SOURCE = build.CSRC / "softecc.cu"
+
+
+@dataclasses.dataclass(frozen=True)
+class Code:
+    n: int
+    data_lo: int
+    shift_score: int
+    shift_match: int
+    shift_diff: int
+    codebook: str   # the [ncw, n] codeword table in tables.npz
+    kernel_id: int  # the C entry's `code`: 0 Golay, 1 Hamming
+
+
+CODES = {
+    "golay": Code(23, 11, 17, 16, 12, "golay_codewords", 0),
+    "hamstd": Code(15, 0, 16, 15, 11, "hamming_codewords_std", 1),
+    "ham7100": Code(15, 0, 16, 15, 11, "hamming_codewords_7100", 1),
+}
+
+# kernel launches made by soft_decode_keys (the plain version does not count)
+LAUNCHES = 0
+_FN = None
+
+
+def soft_decode_keys_reference(bits, rel, idx_hard, code):
+    """The keys by a float32 matmul over the whole codebook and a min, the
+    XLA form of mbe_tpu/ops/ecc.py:_soft_decode. Exact: every product and
+    sum is an integer below 2^24 (and TF32 is pinned off). Shapes as
+    soft_decode_keys; it materializes [R, ncw] tensors."""
+    spec = CODES[code]
+    cw = table(spec.codebook, bits.device).to(torch.float32)   # [ncw, n]
+    bits = bits.to(torch.int32)
+    rel = rel.to(torch.int32)
+    base = (rel * bits).sum(dim=-1, dtype=torch.int32)
+    q = (rel * (1 - 2 * bits)).to(torch.float32)
+    score = base[:, None] + (q @ cw.T).to(torch.int32)
+    h = bits[:, spec.data_lo:].to(torch.float32)
+    cwd = cw[:, spec.data_lo:]
+    diffs = (h.sum(dim=-1)[:, None] + cwd.sum(dim=-1)[None, :]
+             - 2.0 * (h @ cwd.T)).to(torch.int32)
+    idx = torch.arange(cw.shape[0], dtype=torch.int32, device=bits.device)
+    nomatch = (idx[None, :] != idx_hard.to(torch.int32)[:, None]).to(torch.int32)
+    key = ((score << spec.shift_score) | (nomatch << spec.shift_match)
+           | (diffs << spec.shift_diff) | idx)
+    return key.amin(dim=-1)
+
+
+@lru_cache(maxsize=None)
+def _kernel_tables(code, device):
+    """The kernel's codebook: float32 [ncw, n+1] (the codeword's bits, then
+    64*popcount(cw[data_lo:]) + c % 64, see csrc/softecc.cu) and the
+    packed codewords int32 [ncw], LSB-first."""
+    spec = CODES[code]
+    cw = np.asarray(getattr(T, spec.codebook), np.int64)
+    ncw = cw.shape[0]
+    tab = np.zeros((ncw, spec.n + 1), np.float32)
+    tab[:, :spec.n] = cw
+    tab[:, spec.n] = 64 * cw[:, spec.data_lo:].sum(axis=1) + np.arange(ncw) % 64
+    packed = (cw << np.arange(spec.n)).sum(axis=1).astype(np.int32)
+    return torch.from_numpy(tab).to(device), torch.from_numpy(packed).to(device)
+
+
+def load_library():
+    """Build (if needed) and load the kernel library; returns the C entry
+    point `mbe_soft_decode_keys` with its argument types set."""
+    global _FN
+    if _FN is None:
+        fn = build.load(SOURCE).mbe_soft_decode_keys
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _FN = fn
+    return _FN
+
+
+def _check(name, x, shape, device):
+    if x.device != device or x.dtype != torch.int32 or tuple(x.shape) != shape:
+        raise ValueError(f"soft_decode_keys: {name} must be int32 {shape} on {device}, "
+                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"soft_decode_keys: {name} must be contiguous")
+
+
+def soft_decode_keys(bits, rel, idx_hard, code):
+    """Winning int32 keys [R] of the exhaustive soft ML decode.
+
+    Args:
+      bits, rel: [R, n] int32, contiguous — hard bits (0/1) and
+        reliabilities (0..255); n = 23 for "golay", 15 for the Hamming codes.
+      idx_hard: [R] int32 — the codeword index of each row's hard decode.
+      code: "golay", "hamstd" (standard Hamming generator) or "ham7100".
+    """
+    global LAUNCHES
+    if code not in CODES:
+        raise ValueError(f"soft_decode_keys: unknown code {code!r}")
+    device = bits.device
+    if device.type == "cpu":
+        return soft_decode_keys_reference(bits, rel, idx_hard, code)
+    if device.type != "cuda":
+        raise ValueError(f"soft_decode_keys: no kernel for device {device}")
+    spec = CODES[code]
+    r = bits.shape[0]
+    _check("bits", bits, (r, spec.n), device)
+    _check("rel", rel, (r, spec.n), device)
+    _check("idx_hard", idx_hard, (r,), device)
+    fn = load_library()
+    tab, packed = _kernel_tables(code, device)
+    key = torch.empty((r,), dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(bits.data_ptr(), rel.data_ptr(), idx_hard.data_ptr(), tab.data_ptr(),
+                 packed.data_ptr(), key.data_ptr(), r, spec.kernel_id, stream)
+    if err != 0:
+        raise RuntimeError(f"soft_decode_keys kernel launch failed: CUDA error {err}")
+    LAUNCHES += 1
+    return key

@@ -12,22 +12,16 @@ into build/ at the repository root, keyed by a hash of its source.
 """
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
+
+from . import build
 
 FRAME = 160
 NHARM = 56
 NINTERP = 7
 
-SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "voiced.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+SOURCE = build.CSRC / "voiced.cu"
 
 # kernel launches made by voiced_sums (the plain version does not count)
 LAUNCHES = 0
@@ -52,32 +46,12 @@ def voiced_sums_reference(gain_prev, phi_prev, step_prev, gain_cur, phi_cur0,
             + w_cur[:, None] * bank(gain_cur, phi_cur0, step_cur) + interp)
 
 
-def _nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and Path("/usr/local/cuda/bin/nvcc").exists():
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError(f"nvcc not found: the voiced_sums kernel is built "
-                           f"from {SOURCE} at first use")
-    return nvcc
-
-
 def load_library():
     """Build (if needed) and load the kernel library; returns the C entry
     point `mbe_voiced_sums` with its argument types set."""
     global _FN
     if _FN is None:
-        src = SOURCE.read_bytes()
-        lib_path = BUILD_DIR / f"voiced_{hashlib.sha256(src).hexdigest()[:16]}.so"
-        if not lib_path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib_path.with_name(f"{lib_path.name}.{os.getpid()}.tmp")
-            proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        fn = ctypes.CDLL(str(lib_path)).mbe_voiced_sums
+        fn = build.load(SOURCE).mbe_voiced_sums
         fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _FN = fn

@@ -1,10 +1,15 @@
-"""Packed-word Golay(23,12) / Hamming(15,11) hard decoders (port of the
-hard paths of mbe_tpu.ops.ecc; reference: ecc.c).
+"""Golay(23,12) / Hamming(15,11) hard and soft decoders (port of
+mbe_tpu.ops.ecc; reference: ecc.c).
 
-Codewords live in the low bits of an integer lane, LSB-first (Golay:
-parity 0..10, data 11..22). Syndromes are parities over generator masks;
-the syndrome -> correction step is a lookup in the reference's own
-tables (golayMatrix, ham1511_lut).
+Hard: codewords live in the low bits of an integer lane, LSB-first
+(Golay: parity 0..10, data 11..22). Syndromes are parities over generator
+masks; the syndrome -> correction step is a lookup in the reference's own
+tables (golayMatrix, ham1511_lut, ham1511_7100_lut). Bit planes are
+packed into such words before a decode.
+
+Soft: the exhaustive ML search is kernel B2 (ops/cuda/softecc.py), which
+returns one int32 key per block; the winner's index and diffs unpack from
+it by shifts.
 """
 
 from functools import lru_cache
@@ -14,6 +19,7 @@ import torch
 
 from ..tables import T, table
 from .bits import lookup
+from .cuda import softecc
 
 
 def _parity(x):
@@ -79,13 +85,74 @@ def golay2312_hard_packed(word):
     return (corrected << 11) | ecc_in, errs
 
 
-def hamming1511_hard_packed(block):
-    """Packed-word Hamming(15,11) hard decode with the standard generator
-    (ecc.c:366-464). Returns (corrected block, errs) — 0/1 errors
-    corrected; int32."""
+def hamming1511_hard_packed(block, variant7100=False):
+    """Packed-word Hamming(15,11) hard decode (ecc.c:366-464) with the
+    standard generator, or the IMBE 7100 one (imbe7100x4400.c). Returns
+    (corrected block, errs) — 0/1 errors corrected; int32."""
     block = block.to(torch.int32)
+    gen = T.imbe7100x4400hammingGenerator if variant7100 else T.hammingGenerator
     syndrome = torch.zeros_like(block)
-    for p, g in enumerate(np.asarray(T.hammingGenerator).tolist()):
+    for p, g in enumerate(np.asarray(gen).tolist()):
         syndrome = syndrome | (_parity(block & g) << p)
-    corrected = block ^ lookup(table("ham1511_lut", block.device), syndrome)
+    lut = table("ham1511_7100_lut" if variant7100 else "ham1511_lut", block.device)
+    corrected = block ^ lookup(lut, syndrome)
     return corrected, (syndrome > 0).to(torch.int32)
+
+
+def _pack_lsb(bits):
+    """[..., n] bit planes -> [...] int32 words, bit i at position i."""
+    shifts = torch.arange(bits.shape[-1], device=bits.device)
+    return (bits.to(torch.int32) << shifts).sum(dim=-1).to(torch.int32)
+
+
+def _unpack_lsb(word, n):
+    """[...] words -> [..., n] int32 bit planes, bit i of the word at i."""
+    return ((word[..., None] >> torch.arange(n, device=word.device)) & 1).to(torch.int32)
+
+
+def hard_index(bits, code):
+    """Codeword index of the hard decode of blocks [..., n] under `code`
+    ("golay", "hamstd" or "ham7100"): the codebooks are index-systematic,
+    so it is the corrected data word, taken from the packed decode by
+    shifts. Returns [...] int32."""
+    word = _pack_lsb(bits)
+    if code == "golay":
+        return golay2312_hard_packed(word)[0] >> 11
+    c, _ = hamming1511_hard_packed(word, code == "ham7100")
+    if code == "ham7100":  # data bits at codeword bits 4..14
+        return c >> 4
+    # standard generator: data bits at codeword bits 2, 4..6, 8..14
+    # (tools/gen_tables.py:159-168, from ecc.c:138-155)
+    return ((c >> 2) & 1) | ((c >> 3) & 0xE) | ((c >> 4) & 0x7F0)
+
+
+def _soft_keys(bits, rel, code):
+    """softecc.soft_decode_keys over any leading batch shape, with the
+    blocks' hard decode as idx_hard."""
+    n = bits.shape[-1]
+    key = softecc.soft_decode_keys(
+        bits.to(torch.int32).reshape(-1, n).contiguous(),
+        rel.to(torch.int32).reshape(-1, n).contiguous(),
+        hard_index(bits, code).reshape(-1).contiguous(), code)
+    return key.reshape(bits.shape[:-1])
+
+
+def golay2312_soft(bits, rel):
+    """Soft Golay(23,12) (ecc.c:303-357): exhaustive ML over the 4096
+    codewords with the reference's tie-break.
+
+    bits/rel: [..., 23] int (hard decisions, reliabilities 0..255).
+    Returns (out_bits [..., 23], data_diffs [...]) int32; the output keeps
+    the input's hard parity bits (ecc.c:353-355).
+    """
+    key = _soft_keys(bits, rel, "golay")
+    out = torch.cat([bits[..., :11].to(torch.int32), _unpack_lsb(key & 0xFFF, 12)], dim=-1)
+    return out, (key >> 12) & 0xF
+
+
+def hamming1511_soft(bits, rel, variant7100=False):
+    """Soft Hamming(15,11) (ecc.c:157-215), diffs over all 15 bits.
+    Returns (out_bits [..., 15], diffs [...]) int32."""
+    key = _soft_keys(bits, rel, "ham7100" if variant7100 else "hamstd")
+    packed = table("hamming_7100_packed" if variant7100 else "hamming_std_packed", bits.device)
+    return _unpack_lsb(packed[(key & 0x7FF).long()], 15), (key >> 11) & 0xF

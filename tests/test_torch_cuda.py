@@ -1,5 +1,6 @@
-"""The port on the card: the voiced kernel against its plain version, and
-the golden vectors through the pipeline with the kernel in the loop.
+"""The port on the card: the voiced and soft-decode kernels against their
+plain versions, and the golden vectors through the pipeline with the
+kernels in the loop.
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -16,8 +17,8 @@ import torch
 
 from mbe_tpu_torch import pipeline
 from mbe_tpu_torch.models import state as st
-from mbe_tpu_torch.ops import synth
-from mbe_tpu_torch.ops.cuda import voiced
+from mbe_tpu_torch.ops import ecc, synth
+from mbe_tpu_torch.ops.cuda import softecc, voiced
 
 torch.set_num_threads(1)
 
@@ -101,4 +102,72 @@ def test_e2e_imbe7200_on_card(cuda_device):
             assert _snr_db(vec["pcm"][t, i], audio[i].cpu().numpy()) >= 60.0, (t, i)
         pcm16.append(synth.float_to_short(audio).cpu().numpy())
     assert voiced.LAUNCHES - before == T
+    assert _snr_db(vec["pcm16"], np.stack(pcm16)) >= 60.0
+
+
+def _soft_inputs(code, rows, device):
+    """Random bits; reliabilities random in the first half of the rows,
+    7 in the third quarter and 0 in the last (the tie-break cases); the
+    hard decode's codeword index."""
+    n = softecc.CODES[code].n
+    rng = np.random.default_rng(rows)
+    rel = rng.integers(0, 256, (rows, n))
+    rel[rows // 2:] = 7
+    rel[3 * rows // 4:] = 0
+    bits = torch.as_tensor(rng.integers(0, 2, (rows, n)), dtype=torch.int32, device=device)
+    return (bits, torch.as_tensor(rel, dtype=torch.int32, device=device),
+            ecc.hard_index(bits, code))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [16, 1000, 98304])
+@pytest.mark.parametrize("code", ["golay", "hamstd", "ham7100"])
+def test_softecc_kernel_matches_plain(cuda_device, code, rows):
+    """B2 against its plain version at ragged and full row counts, tie
+    cases included: the int32 keys are equal (tolerance 0)."""
+    bits, rel, idx = _soft_inputs(code, rows, cuda_device)
+    before = softecc.LAUNCHES
+    key = softecc.soft_decode_keys(bits, rel, idx, code)
+    torch.cuda.synchronize()
+    assert softecc.LAUNCHES == before + 1
+    for lo in range(0, rows, 16384):  # the plain version holds [rows, ncw] tensors
+        ref = softecc.soft_decode_keys_reference(bits[lo:lo + 16384], rel[lo:lo + 16384],
+                                                 idx[lo:lo + 16384], code)
+        assert torch.equal(key[lo:lo + 16384], ref), lo
+
+
+@pytest.mark.cuda
+def test_softecc_kernel_rejects_bad_inputs(cuda_device):
+    bits, rel, idx = _soft_inputs("golay", 64, cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        softecc.soft_decode_keys(bits.long(), rel, idx, "golay")
+    with pytest.raises(ValueError, match="contiguous"):
+        softecc.soft_decode_keys(bits, torch.empty((23, 64), dtype=torch.int32,
+                                                   device=cuda_device).T, idx, "golay")
+    with pytest.raises(ValueError, match="int32"):
+        softecc.soft_decode_keys(bits[:, :15], rel[:, :15], idx, "golay")
+
+
+@pytest.mark.cuda
+def test_e2e_imbe7200_soft_on_card(cuda_device):
+    """e2e_imbe7200_soft through the port on the card, B2 launched three
+    times per frame: integers bit-exact, >= 60 dB per frame and for the
+    int16 stream."""
+    vec = dict(np.load(VECTORS / "e2e_imbe7200_soft.npz"))
+    T, C = vec["frames"].shape[:2]
+    state = st.init_state(C, rng_seed=vec["seeds"], device=cuda_device)
+    frames = torch.as_tensor(vec["frames"], device=cuda_device)
+    rel = torch.as_tensor(vec["rel"], device=cuda_device)
+    before = softecc.LAUNCHES
+    pcm16 = []
+    for t in range(T):
+        state, audio, res, d = pipeline.step("imbe7200", frames[t], state, rel[t])
+        np.testing.assert_array_equal(d.cpu().numpy(), vec["dbits"][t])
+        got = np.stack([res[k].cpu().numpy() for k in RES_KEYS], axis=1)
+        np.testing.assert_array_equal(got, vec["res"][t])
+        np.testing.assert_array_equal(res["flags"].cpu().numpy(), vec["flags"][t])
+        for i in range(C):
+            assert _snr_db(vec["pcm"][t, i], audio[i].cpu().numpy()) >= 60.0, (t, i)
+        pcm16.append(synth.float_to_short(audio).cpu().numpy())
+    assert softecc.LAUNCHES - before == 3 * T
     assert _snr_db(vec["pcm16"], np.stack(pcm16)) >= 60.0

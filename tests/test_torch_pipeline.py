@@ -60,7 +60,7 @@ def test_long_imbe7200_run_sequence(vectors):
     """long_imbe7200 (C=4, T=200) through `run_sequence`: no drift."""
     vec = vectors("long_imbe7200")
     T, C = vec["frames"].shape[:2]
-    state = st.init_state(C, rng_seed=vec["seeds"])
+    state = st.init_state(C, rng_seed=vec["seeds"], device="cpu")
     state, pcm, res = pipeline.run_sequence("imbe7200", torch.from_numpy(vec["frames"]),
                                             state)
     np.testing.assert_array_equal(res["flags"].numpy(), vec["flags"])
@@ -72,7 +72,7 @@ def test_long_imbe7200_run_sequence(vectors):
     assert snrs.min() >= 60.0, f"worst frame {snrs.min():.1f} dB"
     _, pcm16, _ = pipeline.run_sequence(
         "imbe7200", torch.from_numpy(vec["frames"]),
-        st.init_state(C, rng_seed=vec["seeds"]), int16=True)
+        st.init_state(C, rng_seed=vec["seeds"], device="cpu"), int16=True)
     assert pcm16.dtype == torch.int16
     s = snr_db(vec["pcm16"].astype(np.float64), pcm16.numpy().astype(np.float64))
     assert s >= 60.0, f"int16 sequence SNR {s:.1f} dB"
@@ -81,7 +81,7 @@ def test_long_imbe7200_run_sequence(vectors):
 def test_fsm_frames_imbe7200(vectors):
     """Crafted repeat/mute frames behind real ECC error counts (C=1)."""
     vec = vectors("fsm_frames_imbe7200")
-    state = st.init_state(1, rng_seed=np.uint32(vec["seed"]))
+    state = st.init_state(1, rng_seed=np.uint32(vec["seed"]), device="cpu")
     hit = set()
     for t in range(vec["frames"].shape[0]):
         state, audio, res, _ = pipeline.step(
@@ -102,7 +102,7 @@ def test_invalid_lane_rollback(vectors):
     its state untouched; the valid lane is bit-identical to a clean run."""
     vec = vectors("e2e_imbe7200")
     frame = torch.from_numpy(vec["frames"][0][:2].copy())
-    state = st.init_state(2, rng_seed=vec["seeds"][:2])
+    state = st.init_state(2, rng_seed=vec["seeds"][:2], device="cpu")
     st_ref, audio_ref, res_ref, _ = pipeline.step("imbe7200", frame, state)
     bad = frame.clone()
     bad[1, 2, 5] = 200
@@ -171,7 +171,7 @@ def test_matches_jax_from_midstream_state(vectors):
 def test_step_int16_and_unported_paths(vectors):
     vec = vectors("e2e_imbe7200")
     frame = torch.from_numpy(vec["frames"][0])
-    state = st.init_state(16, rng_seed=vec["seeds"])
+    state = st.init_state(16, rng_seed=vec["seeds"], device="cpu")
     _, audio, _, _ = pipeline.step("imbe7200", frame, state)
     _, pcm16, _, _ = pipeline.step_int16("imbe7200", frame, state)
     assert pcm16.dtype == torch.int16
@@ -183,10 +183,12 @@ def test_step_int16_and_unported_paths(vectors):
     _, seq16, _ = pipeline.run_sequence("imbe7200", frame[None], state,
                                         config=DecoderConfig(int16_output=True))
     assert torch.equal(seq16[0], pcm16)
-    for codec in ("imbe7100", "ambe2450", "ambe2400"):
+    for codec in ("ambe2450", "ambe2400"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pipeline.step(codec, frame, state)
-    with pytest.raises(NotImplementedError, match="soft"):
-        pipeline.step("imbe7200", frame, state, soft_rel=torch.zeros_like(frame))
+    # soft input at full reliability runs the soft path and flags it
+    _, _, res_soft, _ = pipeline.step("imbe7200", frame, state,
+                                      soft_rel=torch.full_like(frame, 255))
+    assert (res_soft["flags"] & pipeline.FLAG_SOFT_INPUT).all()
     with pytest.raises(ValueError):
         pipeline.step("imbe9999", frame, state)

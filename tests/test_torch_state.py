@@ -46,9 +46,18 @@ def test_init_state_matches_jax(seeded, carry_enh):
     # seed 0 takes the 0x6D25357B substitution; 0xFFFFFFFF the top of uint32
     seeds = (np.array([0, 1, 12345, 0x6D25357B, 0xFFFFFFFF, 53125], np.uint32)
              if seeded else None)
-    ours = st.init_state(c, rng_seed=seeds, carry_enh=carry_enh)
+    ours = st.init_state(c, rng_seed=seeds, carry_enh=carry_enh, device="cpu")
     ref = jst.init_state(c, rng_seed=seeds, carry_enh=carry_enh)
     _assert_state_equal(st.state_to_numpy(ours), ref)
+
+
+def test_init_state_defaults_to_the_card(monkeypatch):
+    """Without a CUDA device, init_state with no device= raises instead of
+    quietly building CPU state; device="cpu" still builds it."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        st.init_state(2)
+    assert st.init_state(2, device="cpu").cur.L.device.type == "cpu"
 
 
 def test_state_numpy_round_trip():
@@ -68,7 +77,7 @@ def test_state_numpy_round_trip():
 
 
 def test_select_cases_first_match_wins():
-    a = st.init_state(4).cur
+    a = st.init_state(4, device="cpu").cur
     b = dataclasses.replace(a, L=torch.full((4,), 20, dtype=torch.int32))
     c = dataclasses.replace(a, L=torch.full((4,), 30, dtype=torch.int32))
     m1 = torch.tensor([True, False, True, False])
@@ -79,7 +88,8 @@ def test_select_cases_first_match_wins():
 
 
 def test_select_and_select_tree_by_lane():
-    a, b = st.init_state(3), st.init_state(3, rng_seed=np.uint32(9), carry_enh=True)
+    a = st.init_state(3, device="cpu")
+    b = st.init_state(3, rng_seed=np.uint32(9), carry_enh=True, device="cpu")
     b.cur.Ml.fill_(2.0)
     m = torch.tensor([True, False, True])
     got = st.select(m, b.cur, a.cur)

@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Per-layer profile of the PyTorch port's step on one NVIDIA GPU.
 
-    python3 tools/profile_torch_step.py [--channels 32768] [--steps 4]
+    python3 tools/profile_torch_step.py [--channels 32768] [--steps 4] [--soft]
 
-Wraps each layer of the hard IMBE 7200 step in a torch.profiler
-`record_function` range and prints, per step: the wall time without the
-profiler, the device kernel count, device busy time and idle share, then
-host and device ms per layer. Kernels launched outside a torch op (the
-voiced_sums kernel, through ctypes) count in the step's device time but
-not in their layer's range.
+Wraps each layer of the IMBE 7200 step (hard, or with --soft random
+reliabilities 0..255) in a torch.profiler `record_function` range and
+prints, per step: the wall time without the profiler, the device kernel
+count, device busy time and idle share, then host and device ms per
+layer. Kernels launched outside a torch op (voiced_sums and soft_decode,
+through ctypes) count in the step's device time but not in their layer's
+range.
 """
 
 import argparse
@@ -54,6 +55,7 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--channels", type=int, default=32768)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--soft", action="store_true", help="soft-decision input")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA device", file=sys.stderr)
@@ -69,13 +71,16 @@ def main():
     rng = np.random.default_rng(0)
     frames = torch.as_tensor(rng.integers(0, 2, (3 * n + 2, c, 8, 23), dtype=np.int8),
                              device=dev)
+    rel = (torch.as_tensor(rng.integers(0, 256, frames.shape, dtype=np.uint8), device=dev)
+           if args.soft else None)
     state = init_state(c, carry_enh=False, device=dev)
 
     def run(t0, t1):
         nonlocal state
         for t in range(t0, t1):
             with record_function("step"):
-                state, audio, _, _ = pipeline.step("imbe7200", frames[t], state)
+                state, audio, _, _ = pipeline.step("imbe7200", frames[t], state,
+                                                   None if rel is None else rel[t])
             audio.sum()
         torch.cuda.synchronize()
 
@@ -91,7 +96,7 @@ def main():
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and e.name not in {"step"} | {tag for _, _, tag in LAYERS}]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3
-    print(f"C={c}: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
+    print(f"C={c} {'soft' if args.soft else 'hard'}: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
           f"kernels/step; device busy {busy_ms:.3f} ms/step; idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     for e in prof.key_averages():
