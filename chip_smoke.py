@@ -5,29 +5,36 @@
 
 Phases, each asserting (any failure ends the run with a nonzero exit):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build both kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu) and
-     soft_decode (csrc/softecc.cu), one nvcc each, started together;
+  2. build the three kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
+     soft_decode (csrc/softecc.cu) and unvoiced_wola (csrc/unvoiced.cu),
+     one nvcc each, started together;
   3. voiced_sums against its plain PyTorch version on the card at
      C = 16, 1000 and 32768: max |err| / max |ref| < 2e-4, both timed;
   3b. soft_decode against its plain version for the three codebooks at
      R = 16, 1000 and 98304 rows (random, constant-7 and zero
      reliabilities): keys equal; both timed at the three launches of a
      soft imbe7200 step at C = 32768;
+  3c. unvoiced_wola against its plain version on the card at C = 16, 1000
+     and 32768 (an eighth of the lanes at w0 = 0, an eighth at L = 56):
+     max |err| / max |ref| < 1e-4 on add and on the new previousUw, both
+     timed;
   4. the golden vectors through the port's pipeline on the card:
-     e2e_imbe7200, e2e_imbe7200_soft, e2e_imbe7100, e2e_imbe7100_soft
-     (C=16, T=40) by `step`, long_imbe7200 and long_imbe7100 (C=4,
-     T=200) by `run_sequence` — imbe_d bits, error counts and flags
+     e2e_{imbe7200,imbe7100,ambe2450,ambe2400}, hard and soft (C=16,
+     T=40), by `step`, long_{imbe7200,imbe7100,ambe2450,ambe2400} (C=4,
+     T=200) by `run_sequence` — parameter bits, error counts and flags
      bit-exact, >= 60 dB PCM SNR per frame and lane, >= 60 dB for the
-     int16 stream; soft_decode launched 3 times per soft frame;
-  5. the main paths at full width: C = 32768 channels of random hard
-     frames, then of random soft frames (hard bits and reliabilities
-     0..255), through `run_sequence` at T = 8 and T = 48, SCALE_REPS
-     runs each; ms per frame step is the slope between the fastest runs
-     of the two (it cancels the fixed per-run cost). Each run's wall and
-     process CPU seconds are printed. Random frames are mostly error
-     frames, but the step's work does not depend on frame content: B2
-     searches every codeword, and every FSM branch is computed and then
-     selected lane by lane.
+     int16 stream; voiced_sums and unvoiced_wola launched once per frame,
+     soft_decode 3 times per soft IMBE frame and 2 times per soft AMBE
+     frame;
+  5. the main paths at full width: C = 32768 channels of random frames
+     through `run_sequence` at T = 8 and T = 48, SCALE_REPS runs each:
+     imbe7200 hard and soft, ambe2450 hard and soft, ambe2400 hard (soft
+     input is random hard bits and reliabilities 0..255). ms per frame
+     step is the slope between the fastest runs of the two (it cancels
+     the fixed per-run cost). Each run's wall and process CPU seconds are
+     printed. Random frames are mostly error frames, but the step's work
+     does not depend on frame content: B2 searches every codeword, and
+     every FSM branch is computed and then selected lane by lane.
 
 Every kernel launch counter is zeroed just before each phase-5 path and
 read just after it. `bound_ms` in the kernels JSON is the least time the
@@ -62,6 +69,10 @@ SCALE_T = (8, 48)
 SOFT_R = (16, 1000, 3 * SCALE_C)
 PLAIN_ROWS = 16384     # row chunk of the plain soft decode ([rows, 4096] tensors)
 SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of each
+UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
+FRAME_SHAPE = {"imbe7200": (8, 23), "imbe7100": (7, 24), "ambe2450": (4, 24),
+               "ambe2400": (4, 24)}
+B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
 BF16_FLOP_S = 989e12   # tensor cores, bf16 in, FP32 accumulate
@@ -227,8 +238,58 @@ def phase_softecc(ecc, softecc, device):
     return dict(max_abs_err=worst, ms=total["ms"], plain_ms=total["plain_ms"], **b)
 
 
+def unvoiced_inputs(c, device):
+    """Random unvoiced_wola inputs in the ranges of tests/test_pallas.py:
+    L 9..56 with w0 from L, an eighth of the lanes at w0 = 0 (the AMBE
+    erasure model) and an eighth at L = 56."""
+    rng = np.random.default_rng(SEED + c)
+    L = rng.integers(9, 57, c).astype(np.int32)
+    L[c // 8: c // 4] = 56
+    w0 = (2.0 * np.pi * 0.4875 / (L + 0.25)).astype(np.float32)
+    w0[: c // 8] = 0.0
+    arrays = (w0, L, rng.uniform(0, 500, (57, c)).astype(np.float32),
+              rng.integers(0, 2, (57, c)).astype(np.int32),
+              rng.uniform(-400, 400, (128, c)).astype(np.float32),
+              rng.uniform(0, 53125, (256, c)).astype(np.float32))
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+def phase_unvoiced(unvoiced, device):
+    worst_abs = 0.0
+    for c in KERNEL_C:
+        args = unvoiced_inputs(c, device)
+        out = unvoiced.unvoiced_wola(*args)
+        torch.cuda.synchronize()
+        ref = unvoiced.unvoiced_wola_reference(*args)
+        errs = [(o - r).abs().max().item() for o, r in zip(out, ref)]
+        rels = [e / r.abs().max().item() for e, r in zip(errs, ref)]
+        ms = cuda_ms(lambda: unvoiced.unvoiced_wola(*args), 20)
+        plain_ms = cuda_ms(lambda: unvoiced.unvoiced_wola_reference(*args), 5)
+        print(f"kernel unvoiced_wola C={c}: max_abs_err add {errs[0]!r} uw {errs[1]!r}, "
+              f"rel {rels[0]!r} {rels[1]!r}; kernel {ms!r} ms, plain {plain_ms!r} ms")
+        assert max(rels) < UNVOICED_TOL, f"C={c}: relative error {rels} >= {UNVOICED_TOL}"
+        assert bool((out[1][:, : c // 8] == 0).all()), f"C={c}: w0 = 0 lanes not silent"
+        worst_abs = max(worst_abs, *errs)
+    # at the last (full) width. Bytes: per channel w0, L, Ml [57], Vl [57],
+    # previousUw [128] and the noise [256] read, add [160] and the new
+    # previousUw [128] written (788 words), plus the window and table
+    # constants. The function's least FP32 work per channel: two 256-point
+    # real FFTs at 2.5 N log2 N flops each, the window, |X|^2, the band
+    # sums and scalors, the bin scaling and the WOLA, ~12k ops, each
+    # counted as one FP32 lane-op.
+    nbytes = 4 * (788 * c + 256 + 256 + 3 * 160)
+    ops = c * (2 * 5120 + 256 + 3 * 128 + 128 + 4 * 57 + 2 * 256 + 4 * 160)
+    # this kernel's design: direct DFTs after one radix-2 split, 128 x 128
+    # complex terms forward and as many inverse, 65,536 FMAs per channel
+    design_ms = c * 65536 / FP32_OPS_S * 1e3
+    b = bound(nbytes, fp32_ops=ops)
+    print(f"kernel unvoiced_wola C={c}: bound {b['bound_ms']!r} ms ({b['bound_by']}); "
+          f"FP32 floor of this design {design_ms!r} ms [{card()}]")
+    return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **b)
+
+
 def check_outputs(name, vec, pcm, res, dbits=None):
-    """Bit-exact counts/flags (and imbe_d), per-frame and int16 SNR."""
+    """Bit-exact counts/flags (and parameter bits), per-frame and int16 SNR."""
     from mbe_tpu_torch.ops.synth import float_to_short
     got = np.stack([res[k].cpu().numpy() for k in
                     ("c0_errors", "protected_errors", "c4_errors", "total_errors")],
@@ -237,7 +298,7 @@ def check_outputs(name, vec, pcm, res, dbits=None):
     np.testing.assert_array_equal(res["flags"].cpu().numpy(), vec["flags"],
                                   err_msg=f"{name} flags")
     if dbits is not None:
-        np.testing.assert_array_equal(dbits, vec["dbits"], err_msg=f"{name} imbe_d")
+        np.testing.assert_array_equal(dbits, vec["dbits"], err_msg=f"{name} parameter bits")
     pcm_np = pcm.cpu().numpy()
     T, C = pcm_np.shape[:2]
     snrs = np.array([[snr_db(vec["pcm"][t, i], pcm_np[t, i]) for i in range(C)]
@@ -252,13 +313,12 @@ def check_outputs(name, vec, pcm, res, dbits=None):
 
 def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=False):
     """One golden vector through `step` (or `run_sequence`) on the card."""
-    voiced, softecc = kernels
     vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
     state = init_state(C, rng_seed=vec["seeds"], device=device)
     frames = torch.as_tensor(vec["frames"], device=device)
     rel = torch.as_tensor(vec["rel"], device=device) if soft else None
-    before = (voiced.LAUNCHES, softecc.LAUNCHES)
+    before = {k: m.LAUNCHES for k, m in kernels.items()}
     if sequence:
         state, pcm, res = pipeline.run_sequence(codec, frames, state, rel)
         dbits = None
@@ -272,40 +332,40 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=Fa
             dbits.append(d.cpu().numpy())
         pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
                            np.stack(dbits))
-    assert voiced.LAUNCHES - before[0] >= T, f"{name}: voiced kernel not launched per frame"
-    b2 = softecc.LAUNCHES - before[1]
-    assert b2 == (3 * T if soft else 0), f"{name}: soft_decode launched {b2} times in {T} frames"
+    launches = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+    want = dict(voiced_sums=T, unvoiced_wola=T,
+                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
+    assert launches == want, f"{name}: kernel launches {launches} in {T} frames, want {want}"
     check_outputs(name, vec, pcm, res, dbits)
 
 
 def phase_goldens(pipeline, init_state, kernels, device):
-    for name, codec, soft in (("e2e_imbe7200", "imbe7200", False),
-                              ("e2e_imbe7200_soft", "imbe7200", True),
-                              ("e2e_imbe7100", "imbe7100", False),
-                              ("e2e_imbe7100_soft", "imbe7100", True)):
-        golden(pipeline, init_state, kernels, device, name, codec, soft)
-    for name, codec in (("long_imbe7200", "imbe7200"), ("long_imbe7100", "imbe7100")):
-        golden(pipeline, init_state, kernels, device, name, codec, False, sequence=True)
+    for codec in ("imbe7200", "imbe7100", "ambe2450", "ambe2400"):
+        for soft in (False, True):
+            name = f"e2e_{codec}_soft" if soft else f"e2e_{codec}"
+            golden(pipeline, init_state, kernels, device, name, codec, soft)
+        golden(pipeline, init_state, kernels, device, f"long_{codec}", codec, False,
+               sequence=True)
 
 
-def phase_scale(pipeline, init_state, kernels, device, soft, reps=SCALE_REPS):
+def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_REPS):
     """One main path at C = SCALE_C: the slope between the fastest of
-    `reps` T = 8 and T = 48 runs, with every launch counter zeroed before
-    it and read after it."""
-    voiced, softecc = kernels
+    `reps` T = 8 and T = 48 runs, with every launch counter of `kernels`
+    ({name: module}) zeroed before it and read after it."""
     rng = np.random.default_rng(SEED)
     t_max = max(SCALE_T)
-    frames = torch.as_tensor(
-        rng.integers(0, 2, (t_max, SCALE_C, 8, 23), dtype=np.int8), device=device)
-    rel = (torch.as_tensor(rng.integers(0, 256, (t_max, SCALE_C, 8, 23), dtype=np.uint8),
-                           device=device) if soft else None)
-    path = "imbe7200 soft" if soft else "imbe7200 hard"
+    shape = (t_max, SCALE_C, *FRAME_SHAPE[codec])
+    frames = torch.as_tensor(rng.integers(0, 2, shape, dtype=np.int8), device=device)
+    rel = (torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=device)
+           if soft else None)
+    path = f"{codec} {'soft' if soft else 'hard'}"
+    ambe = codec.startswith("ambe")
 
     def run(T):
-        state = init_state(SCALE_C, carry_enh=False, device=device)
+        state = init_state(SCALE_C, carry_enh=ambe, device=device)
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.process_time()
-        state, pcm, res = pipeline.run_sequence("imbe7200", frames[:T], state,
+        state, pcm, res = pipeline.run_sequence(codec, frames[:T], state,
                                                 None if rel is None else rel[:T])
         total = pcm.sum().item()  # consume the PCM; .item() synchronizes
         dt, cpu = time.perf_counter() - t0, time.process_time() - c0
@@ -315,8 +375,8 @@ def phase_scale(pipeline, init_state, kernels, device, soft, reps=SCALE_REPS):
         return dt, cpu
 
     torch.cuda.reset_peak_memory_stats(device)
-    voiced.LAUNCHES = 0
-    softecc.LAUNCHES = 0
+    for m in kernels.values():
+        m.LAUNCHES = 0
     run(2)  # warm-up: device tables, allocator
     times = {T: [] for T in SCALE_T}
     cpu = {T: [] for T in SCALE_T}
@@ -325,11 +385,12 @@ def phase_scale(pipeline, init_state, kernels, device, soft, reps=SCALE_REPS):
             dt, c = run(T)
             times[T].append(dt)
             cpu[T].append(c)
-    launches = dict(voiced_sums=voiced.LAUNCHES, soft_decode=softecc.LAUNCHES)
+    launches = {k: m.LAUNCHES for k, m in kernels.items()}
     steps = 2 + reps * sum(SCALE_T)
-    assert launches["voiced_sums"] == steps, f"{path}: voiced kernel launched {launches}"
-    assert launches["soft_decode"] == (3 * steps if soft else 0), \
-        f"{path}: soft_decode launched {launches}"
+    per_step = dict(voiced_sums=1, unvoiced_wola=1,
+                    soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0)
+    want = {k: per_step[k] * steps for k in kernels}
+    assert launches == want, f"{path}: kernel launches {launches}, want {want}"
     peak = torch.cuda.max_memory_allocated(device)
 
     dn = SCALE_T[1] - SCALE_T[0]
@@ -350,7 +411,7 @@ def main():
     from mbe_tpu_torch import pipeline
     from mbe_tpu_torch.models.state import init_state
     from mbe_tpu_torch.ops import ecc
-    from mbe_tpu_torch.ops.cuda import softecc, voiced
+    from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
 
     device = torch.device("cuda", 0)
     card_line = card()
@@ -358,28 +419,35 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    kernels = (voiced, softecc)
+    kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(k.load_library) for k in kernels]:
+        for fut in [pool.submit(k.load_library) for k in kernels.values()]:
             fut.result()
-    print(f"build voiced_sums + soft_decode: {time.perf_counter() - t0!r} s")
+    print(f"build {' + '.join(kernels)}: {time.perf_counter() - t0!r} s")
 
     k_voiced = phase_kernel(voiced, device)
     k_soft = phase_softecc(ecc, softecc, device)
+    k_unvoiced = phase_unvoiced(unvoiced, device)
     phase_goldens(pipeline, init_state, kernels, device)
-    hard = phase_scale(pipeline, init_state, kernels, device, soft=False)
-    soft = phase_scale(pipeline, init_state, kernels, device, soft=True)
+    paths = {}
+    for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
+                        ("ambe2450", True), ("ambe2400", False)):
+        paths[codec, soft] = phase_scale(pipeline, init_state, kernels, device, codec, soft)
 
     print(json.dumps({"kernels": [
         {"name": "voiced_sums", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/voiced.cu",
          "replaces": "mbe_tpu/ops/pallas/voiced.py:140",
-         "launches": hard["voiced_sums"], **k_voiced},
+         "launches": paths["imbe7200", False]["voiced_sums"], **k_voiced},
         {"name": "soft_decode", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/softecc.cu",
          "replaces": "mbe_tpu/ops/pallas/softecc.py:128",
-         "launches": soft["soft_decode"], **k_soft}]}))
+         "launches": paths["imbe7200", True]["soft_decode"], **k_soft},
+        {"name": "unvoiced_wola", "route": "cuda",
+         "source": "mbe_tpu_torch/csrc/unvoiced.cu",
+         "replaces": "mbe_tpu/ops/pallas/unvoiced.py:174",
+         "launches": paths["ambe2450", False]["unvoiced_wola"], **k_unvoiced}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

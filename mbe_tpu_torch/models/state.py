@@ -17,6 +17,7 @@ from ..tables import T
 NBANDS = 57
 
 MUTING_THRESHOLD_IMBE = float(np.float32(0.0875))
+MUTING_THRESHOLD_AMBE = float(np.float32(0.096))
 DEFAULT_LOCAL_ENERGY = 75000.0
 DEFAULT_AMPLITUDE_THRESHOLD = 20480
 
@@ -84,17 +85,18 @@ def map_state(fn, *sts: ChannelState) -> ChannelState:
         lcg_prime=fn(*(s.lcg_prime for s in sts)))
 
 
-def _default_parms(c: int, device) -> Parms:
-    """JMBE IMBE defaults (mbelib.c:368-409)."""
+def _default_parms(c: int, device, ambe: bool = False) -> Parms:
+    """JMBE defaults: IMBE (mbelib.c:368-409) or AMBE W124
+    (ambe_common.c:192-229)."""
     f32, i32 = torch.float32, torch.int32
 
     def full(shape, v, dt):
         return torch.full(shape, v, dtype=dt, device=device)
 
     return Parms(
-        w0=full((c,), float(T.default_w0[2]), f32),
-        L=full((c,), 39, i32),
-        K=full((c,), 12, i32),
+        w0=full((c,), float(T.default_w0[0 if ambe else 2]), f32),
+        L=full((c,), 15 if ambe else 39, i32),
+        K=full((c,), 0 if ambe else 12, i32),
         Vl=full((NBANDS, c), 0, i32),
         Ml=full((NBANDS, c), 1.0, f32),
         log2Ml=full((NBANDS, c), 0.0, f32),
@@ -109,7 +111,8 @@ def _default_parms(c: int, device) -> Parms:
         errorCountTotal=full((c,), 0, i32),
         errorCount4=full((c,), 0, i32),
         repeatCount=full((c,), 0, i32),
-        mutingThreshold=full((c,), MUTING_THRESHOLD_IMBE, f32),
+        mutingThreshold=full((c,), MUTING_THRESHOLD_AMBE if ambe else MUTING_THRESHOLD_IMBE,
+                             f32),
         previousUw=full((128, c), 0.0, f32),
         noiseSeed=full((c,), -1.0, f32),
         noisePrevSeed=full((c,), -1.0, f32),
@@ -168,17 +171,38 @@ def select_tree(mask, a: ChannelState, b: ChannelState) -> ChannelState:
 
 def select_cases(cases, default: Parms) -> Parms:
     """First-match-wins lane select: select_cases([(m1, t1), (m2, t2)], d)
-    is t1 where m1, else t2 where m2, else d. A case leaf that is the
-    default's own leaf costs nothing."""
+    is t1 where m1, else t2 where m2, else d. A case leaf that is the leaf
+    already selected (the default's own, before any later case applied)
+    costs nothing."""
     out = {}
     for k in PARMS_FIELDS:
         x = getattr(default, k)
         for m, t in reversed(cases):
             src = getattr(t, k)
-            if src is not getattr(default, k):
+            if src is not x:
                 x = torch.where(_lane_mask(m, src), src, x)
         out[k] = x
     return Parms(**out)
+
+
+def ambe_default_parms_like(p: Parms) -> Parms:
+    """mbe_initAmbeParms_common values with p's batch shape and device
+    (ambe_common.c:192-229)."""
+    return _default_parms(p.w0.shape[0], p.w0.device, ambe=True)
+
+
+def erasure_parms(mp: Parms, continuity: Parms) -> Parms:
+    """mbe_setAmbeErasureParms_common (ambe_common.c:231-260): the W120
+    model (w0 = 0, L = 9) with phase and noise continuity taken from
+    `continuity`; error, repeat and muting fields keep mp's values."""
+    d = _default_parms(mp.w0.shape[0], mp.w0.device, ambe=True)
+    return dataclasses.replace(
+        mp, swn=d.swn, tonePhase=d.tonePhase, w0=torch.zeros_like(d.w0),
+        L=torch.full_like(d.L, 9), K=d.K, gamma=d.gamma, Ml=d.Ml, Vl=d.Vl,
+        log2Ml=d.log2Ml, localEnergy=d.localEnergy,
+        amplitudeThreshold=d.amplitudeThreshold,
+        **{k: getattr(continuity, k) for k in ("PHIl", "PSIl", "noiseSeed", "noisePrevSeed",
+                                               "previousUw")})
 
 
 def imbe_headroom_reset(mp: Parms) -> Parms:

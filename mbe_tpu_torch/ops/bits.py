@@ -1,6 +1,8 @@
 """Bit validation, table lookup, packing and soft-bit helpers (port of
 mbe_tpu.ops.bits)."""
 
+from functools import lru_cache
+
 import torch
 
 
@@ -24,6 +26,19 @@ def pack_msb_first(bits, indices):
     idx = torch.as_tensor(indices, dtype=torch.long, device=bits.device)
     shifts = torch.arange(len(idx) - 1, -1, -1, device=bits.device)
     return ((bits[..., idx].to(torch.int32) << shifts).sum(dim=-1)).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def _field_index(rows, device):
+    return (torch.as_tensor(rows, device=device),
+            torch.arange(len(rows) - 1, -1, -1, device=device)[:, None])
+
+
+def field(d, rows):
+    """Value of rows `rows` of channel-minor int32 bit planes d [n, C], the
+    first row the MSB; [C] int32. The index tensors are cached per device."""
+    idx, shifts = _field_index(tuple(rows), d.device)
+    return (d[idx] << shifts).sum(dim=0, dtype=torch.int32)
 
 
 def pack_descending(bits, high, low=0):

@@ -1,9 +1,10 @@
-"""Speech synthesis: phases, the voiced oscillator bank, unvoiced FFT +
-WOLA, clipping (port of the IMBE main-path functions of
-mbe_tpu.ops.synth; mbelib.c:891-1105, mbe_unvoiced_fft.c:714-761).
+"""Speech and tone synthesis: phases, the voiced oscillator bank, unvoiced
+FFT + WOLA, tones, clipping (port of mbe_tpu.ops.synth; mbelib.c:691-1105,
+mbe_unvoiced_fft.c:714-761).
 
-Band arrays are [57, C], buffers [256, C], audio [160, C]. The voiced
-bank runs in the hand-written kernel of ops/cuda/voiced.py on the GPU.
+Band arrays are [57, C], buffers [256, C], audio [160, C]. On the GPU the
+voiced bank runs in the hand-written kernel of ops/cuda/voiced.py and the
+unvoiced stage in that of ops/cuda/unvoiced.py.
 """
 
 from functools import lru_cache
@@ -12,48 +13,16 @@ import numpy as np
 import torch
 
 from ..tables import T, table
-from . import fft as fft_ops
+from .bits import field, lookup
+from .cuda import unvoiced
 from .cuda.voiced import voiced_sums
-from .enhance import band_mask
 
 FRAME = 160
-FFT_SIZE = 256
 TWO_PI = float(np.float32(2.0 * np.pi))
 PI = float(np.float32(np.pi))
 WHITE_NOISE_SCALAR = float(np.float32(2.0 * np.pi / 53125.0))
 SOFT_CLIP = float(np.float32((32767.0 * 0.95) / 7.0))
-UNVOICED_SCALE_COEFF = float(np.float32(146.17696))
-M_256_OVER_2PI = float(np.float32(256.0 / (2.0 * 3.14159265358979323846)))
 MAX_SHORT = float(np.float32(32767.0 * 0.95))
-
-
-def _wola_weights():
-    """WOLA weight vectors (mbe_unvoiced_fft.c:159-170)."""
-    ws = np.asarray(T.Ws_synthesis, np.float32)  # [211], index n+105
-
-    def win(n):
-        return ws[n + 105] if -105 <= n <= 105 else np.float32(0.0)
-
-    w_prev = np.array([win(n) for n in range(FRAME)], np.float32)
-    w_curr = np.array([win(n - FRAME) for n in range(FRAME)], np.float32)
-    return w_prev, w_curr, w_prev * w_prev + w_curr * w_curr
-
-
-def _synthesis_window_256():
-    """256-tap window centered at 128 (mbe_unvoiced_fft.c:172-175)."""
-    ws = np.asarray(T.Ws_synthesis, np.float32)
-    out = np.zeros(FFT_SIZE, np.float32)
-    for i in range(FFT_SIZE):
-        if -105 <= i - 128 <= 105:
-            out[i] = ws[i - 128 + 105]
-    return out
-
-
-@lru_cache(maxsize=None)
-def _windows(device):
-    """(win256 [256, 1], w_prev, w_curr, denom [160, 1]) on `device`."""
-    return tuple(torch.as_tensor(a, device=device)[:, None]
-                 for a in (_synthesis_window_256(), *_wola_weights()))
 
 
 # ---------------------------------------------------------------------------
@@ -170,75 +139,84 @@ def render_voiced(cur_w0, cur_Ml, cur_Vl, cur_PHIl,
 # Unvoiced FFT synthesis + WOLA (mbe_unvoiced_fft.c:714-761)
 # ---------------------------------------------------------------------------
 
-def band_of_bins(cur_w0):
-    """Exact per-bin band id [129, C] (f32; -1 = no band).
-
-    The band intervals tile the bins contiguously, b_max[l] =
-    ceil((l+0.5)*mult) = a_min[l+1] (mbe_unvoiced_fft.c:643-661), so bin
-    k's band is floor(k/mult + 0.5) up to f32 rounding at the edges; two
-    correction rounds against the reference's own f32 edge expressions
-    make the assignment match its ceil-based membership bit for bit.
-    """
-    m = (M_256_OVER_2PI * cur_w0)[None, :]
-    kf = torch.arange(FFT_SIZE // 2 + 1, device=cur_w0.device,
-                      dtype=torch.float32)[:, None]
-    safe = m > 0.0
-    band = torch.floor(kf / torch.where(safe, m, 1.0) + 0.5)
-    for _ in range(2):
-        lo = torch.ceil((band - 0.5) * m)
-        hi = torch.ceil((band + 0.5) * m)
-        band = band + (kf >= hi).to(torch.float32) - (kf < lo).to(torch.float32)
-    # the reference clamps b_max to 128, so bin 128 belongs to no band
-    return torch.where(safe & (kf < FFT_SIZE // 2), band, -1.0)
-
-
 def unvoiced_fft(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer):
     """JMBE #117-126. Returns (unvoiced_add [160, C], new_previousUw
-    [128, C]); band inputs [57, C], noise_buffer [256, C].
+    [128, C]); band inputs [57, C], noise_buffer [256, C]. The whole stage
+    is ops/cuda/unvoiced.unvoiced_wola: the hand-written kernel on the GPU,
+    its plain version on the CPU."""
+    return unvoiced.unvoiced_wola(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer)
 
-    previous_uw is the upper half of the reference's 256-sample buffer:
-    the WOLA reads prevUw[n+128] only (mbe_unvoiced_fft.c:398-404).
-    Band energies are a scatter-add of |X_k|^2 by band id and the band
-    gains return to the bins by a gather; bins with no band (or a band
-    above 56) go to a spare row 57. On the GPU the scatter-add's float
-    atomics sum each band in no fixed order (ulp-level differences from
-    run to run, far inside the 60 dB synthesis budget).
+
+# ---------------------------------------------------------------------------
+# Tone synthesis (mbelib.c:691-856)
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _tone_tables(device):
+    """Per-tone-id (step1, step2, active, dual) [256] on `device`.
+
+    The uint32 phase steps (mbelib.c:692-699) are computed in float64 as
+    the C double arithmetic, held as int64; step1 is 0 unless the tone is
+    active (valid and freq1 > 0), step2 0 unless it is also dual (freq2 >
+    0 and distinct from freq1)."""
+    f32 = np.asarray(T.tone_freqs, np.float32)  # [256, 2]
+    steps = (f32.astype(np.float64) / 8000.0) * 4294967296.0
+    steps = np.where(steps <= 0.0, 0.0, steps + 0.5).astype(np.uint64) & 0xFFFFFFFF
+    active = (np.asarray(T.tone_valid) != 0) & (f32[:, 0] > 0.0)
+    dual = active & (f32[:, 1] > 0.0) & (np.abs(f32[:, 1] - f32[:, 0]) > np.float32(1e-6))
+    step1 = np.where(active, steps[:, 0], 0).astype(np.int64)
+    step2 = np.where(dual, steps[:, 1], 0).astype(np.int64)
+    return tuple(torch.as_tensor(a, device=device) for a in (step1, step2, active, dual))
+
+
+def parse_tone_fields(ambe_d):
+    """AD / ID1 extraction from 49 AMBE bits (mbelib.c:760-789).
+
+    ambe_d: [49, C] (channel-minor). Returns (AD [C] i32, ID1 [C] i32)."""
+    d = ambe_d.to(torch.int32)
+    u0, u1, u3 = field(d, range(0, 12)), field(d, range(12, 24)), field(d, range(35, 49))
+    return ((u0 & 0x3F) << 1) + ((u3 >> 4) & 1), (u1 & 0xFFF) >> 4
+
+
+def render_tone(tone_id, amplitude_id, swn, tone_phase):
+    """mbe_renderTonef (mbelib.c:707-736), batched with exact uint32 phases.
+
+    The phase of sample n is (phase0 + step*(n+1)) mod 2^32 in int64, as
+    the reference's accumulator; the steps are gathered by tone id.
+    Silence (all-zero output, state unchanged) for invalid tone ids or
+    freq1 <= 0. swn / tone_phase are [C] int64 holding uint32 values.
+    Returns (samples [160, C], swn', tonePhase').
     """
-    win256, w_prev, w_curr, denom = _windows(cur_w0.device)
-    c = cur_w0.shape[0]
-    reim = fft_ops.rfft256_packed(noise_buffer * win256)  # [258, C]
-    Xre = reim[:fft_ops.NBINS, :]
-    Xim = reim[fft_ops.NBINS:, :]
+    step1_t, step2_t, active_t, dual_t = _tone_tables(tone_id.device)
+    tid = torch.clamp(tone_id, 0, 255).long()
+    step1, step2, active, dual = step1_t[tid], step2_t[tid], active_t[tid], dual_t[tid]
+    gain = (torch.clamp(amplitude_id, min=0).to(torch.float32) / 127.0) * SOFT_CLIP
 
-    # band edges (mbe_unvoiced_fft.c:643-661), for the bin counts
-    mult = (M_256_OVER_2PI * cur_w0)[None, :]
-    lf = torch.arange(57, device=cur_w0.device, dtype=torch.float32)[:, None]
-    a_min = torch.clamp(torch.ceil((lf - 0.5) * mult), min=0.0)
-    b_max = torch.clamp(torch.ceil((lf + 0.5) * mult), max=float(FFT_SIZE // 2))
-    lmask = band_mask(cur_L) & (cur_Vl == 0)
+    nn = torch.arange(1, FRAME + 1, device=tone_id.device, dtype=torch.int64)[:, None]
+    rad = float(np.float32(2.0 * np.pi / 4294967296.0))
+    half_pi = float(np.float32(np.pi / 2.0))
 
-    band = band_of_bins(cur_w0)
-    row = torch.where((band >= 0.0) & (band <= 56.0), band, 57.0).long()
-    mag2 = Xre * Xre + Xim * Xim                          # [129, C]
-    numerator = torch.zeros((58, c), dtype=torch.float32, device=cur_w0.device)
-    numerator = numerator.scatter_add_(0, row, mag2)[:57]
+    def osc(phase0, step):
+        ph = (phase0[None, :] + step[None, :] * nn) & 0xFFFFFFFF  # [160, C]
+        return torch.sin(ph.to(torch.float32) * rad - half_pi)
 
-    bin_count = b_max - a_min
-    ok = lmask & (bin_count > 0) & (numerator > 1e-10)
-    mean = numerator / torch.where(bin_count > 0, bin_count, 1.0)
-    scalor = UNVOICED_SCALE_COEFF * cur_Ml / torch.sqrt(torch.where(mean > 0, mean, 1.0))
-    scalor = torch.where(ok, scalor, 0.0)
-    spare = torch.zeros((1, c), dtype=torch.float32, device=cur_w0.device)
-    bin_scalor = torch.gather(torch.cat([scalor, spare]), 0, row)  # [129, C]
-    uw_out = fft_ops.irfft256_packed(reim * torch.cat([bin_scalor, bin_scalor]))
+    g1 = torch.where(active, torch.where(dual, 0.5 * gain, gain), 0.0)[None, :]
+    g2 = torch.where(dual, 0.5 * gain, 0.0)[None, :]
+    samples = g1 * osc(swn, step1) + g2 * osc(tone_phase, step2)
+    new_swn = torch.where(active, (swn + step1 * FRAME) & 0xFFFFFFFF, swn)
+    new_tp = torch.where(dual, (tone_phase + step2 * FRAME) & 0xFFFFFFFF, tone_phase)
+    return samples, new_swn, new_tp
 
-    # WOLA combine (mbe_unvoiced_fft.c:343-530)
-    zeros32 = torch.zeros((32, c), dtype=torch.float32, device=cur_w0.device)
-    prev_part = torch.cat([previous_uw, zeros32])
-    curr_part = torch.cat([zeros32, uw_out[:128, :]])
-    add = torch.where(denom > 1e-10, (w_prev * prev_part + w_curr * curr_part) / denom,
-                      0.0)
-    return add, uw_out[128:, :]
+
+def dstar_tone_id(ambe_d):
+    """AMBE2400 scrambled tone index (ambe3600x2400.c:177-199).
+    ambe_d: [49, C] (channel-minor)."""
+    d = ambe_d.to(torch.int32)
+    defv = (d[6] << 2) | (d[7] << 1) | d[8]
+    t7, t6, t5 = (lookup(table(name, d.device), defv).to(torch.int32)
+                  for name in ("dstar_t7tab", "dstar_t6tab", "dstar_t5tab"))
+    return ((t7 << 7) | (t6 << 6) | (t5 << 5) | (d[9] << 4)
+            | (d[42] << 3) | (d[43] << 2) | (d[10] << 1) | d[11])
 
 
 # ---------------------------------------------------------------------------

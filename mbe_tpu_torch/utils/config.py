@@ -9,8 +9,9 @@ class DecoderConfig:
 
     Attributes:
       codec: one of pipeline.CODECS.
-      tones_enabled: False mirrors DISABLE_AMBE_TONES (AMBE only; the IMBE
-        path ported so far has no tones).
+      tones_enabled: False mirrors DISABLE_AMBE_TONES (mbelib.c:747-751):
+        AMBE tone frames render silence with the tone state kept. IMBE has
+        no tones.
       int16_output: convert PCM to int16 (the `short` API).
       validate_lanes: per-lane MBE_STATUS_INVALID_BITS masking inside the
         step (invalid lanes -> silence + state rollback + status=-2).

@@ -1,6 +1,6 @@
-"""The port on the card: the voiced and soft-decode kernels against their
-plain versions, and the golden vectors through the pipeline with the
-kernels in the loop.
+"""The port on the card: the voiced, soft-decode and unvoiced kernels
+against their plain versions, and the golden vectors through the pipeline
+with the kernels in the loop.
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -18,7 +18,7 @@ import torch
 from mbe_tpu_torch import pipeline
 from mbe_tpu_torch.models import state as st
 from mbe_tpu_torch.ops import ecc, synth
-from mbe_tpu_torch.ops.cuda import softecc, voiced
+from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
 
 torch.set_num_threads(1)
 
@@ -82,18 +82,21 @@ def test_voiced_kernel_rejects_bad_inputs(cuda_device):
         voiced.voiced_sums(*bad)
 
 
-@pytest.mark.cuda
-def test_e2e_imbe7200_on_card(cuda_device):
-    """e2e_imbe7200 through the port on the card, one kernel launch per
-    frame: integers bit-exact, >= 60 dB per frame and for the int16 stream."""
-    vec = dict(np.load(VECTORS / "e2e_imbe7200.npz"))
+def _golden_on_card(device, name, codec, soft):
+    """One golden vector through `step` on the card: parameter bits, error
+    counts and flags bit-exact, >= 60 dB per frame and lane and for the
+    int16 stream; B1 and B3 launched once per frame, B2 3 times per soft
+    IMBE frame and 2 times per soft AMBE frame."""
+    vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
-    state = st.init_state(C, rng_seed=vec["seeds"], device=cuda_device)
-    frames = torch.as_tensor(vec["frames"], device=cuda_device)
-    before = voiced.LAUNCHES
+    state = st.init_state(C, rng_seed=vec["seeds"], device=device)
+    frames = torch.as_tensor(vec["frames"], device=device)
+    rel = torch.as_tensor(vec["rel"], device=device) if soft else None
+    before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
     pcm16 = []
     for t in range(T):
-        state, audio, res, d = pipeline.step("imbe7200", frames[t], state)
+        state, audio, res, d = pipeline.step(codec, frames[t], state,
+                                             None if rel is None else rel[t])
         np.testing.assert_array_equal(d.cpu().numpy(), vec["dbits"][t])
         got = np.stack([res[k].cpu().numpy() for k in RES_KEYS], axis=1)
         np.testing.assert_array_equal(got, vec["res"][t])
@@ -101,8 +104,16 @@ def test_e2e_imbe7200_on_card(cuda_device):
         for i in range(C):
             assert _snr_db(vec["pcm"][t, i], audio[i].cpu().numpy()) >= 60.0, (t, i)
         pcm16.append(synth.float_to_short(audio).cpu().numpy())
-    assert voiced.LAUNCHES - before == T
+    b2 = (3 if codec.startswith("imbe") else 2) * T if soft else 0
+    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
+            softecc.LAUNCHES - before[2]) == (T, T, b2)
     assert _snr_db(vec["pcm16"], np.stack(pcm16)) >= 60.0
+
+
+@pytest.mark.cuda
+def test_e2e_imbe7200_on_card(cuda_device):
+    """e2e_imbe7200 through the port on the card (_golden_on_card)."""
+    _golden_on_card(cuda_device, "e2e_imbe7200", "imbe7200", False)
 
 
 def _soft_inputs(code, rows, device):
@@ -151,23 +162,57 @@ def test_softecc_kernel_rejects_bad_inputs(cuda_device):
 @pytest.mark.cuda
 def test_e2e_imbe7200_soft_on_card(cuda_device):
     """e2e_imbe7200_soft through the port on the card, B2 launched three
-    times per frame: integers bit-exact, >= 60 dB per frame and for the
-    int16 stream."""
-    vec = dict(np.load(VECTORS / "e2e_imbe7200_soft.npz"))
-    T, C = vec["frames"].shape[:2]
-    state = st.init_state(C, rng_seed=vec["seeds"], device=cuda_device)
-    frames = torch.as_tensor(vec["frames"], device=cuda_device)
-    rel = torch.as_tensor(vec["rel"], device=cuda_device)
-    before = softecc.LAUNCHES
-    pcm16 = []
-    for t in range(T):
-        state, audio, res, d = pipeline.step("imbe7200", frames[t], state, rel[t])
-        np.testing.assert_array_equal(d.cpu().numpy(), vec["dbits"][t])
-        got = np.stack([res[k].cpu().numpy() for k in RES_KEYS], axis=1)
-        np.testing.assert_array_equal(got, vec["res"][t])
-        np.testing.assert_array_equal(res["flags"].cpu().numpy(), vec["flags"][t])
-        for i in range(C):
-            assert _snr_db(vec["pcm"][t, i], audio[i].cpu().numpy()) >= 60.0, (t, i)
-        pcm16.append(synth.float_to_short(audio).cpu().numpy())
-    assert softecc.LAUNCHES - before == 3 * T
-    assert _snr_db(vec["pcm16"], np.stack(pcm16)) >= 60.0
+    times per frame (_golden_on_card)."""
+    _golden_on_card(cuda_device, "e2e_imbe7200_soft", "imbe7200", True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,codec,soft", [("e2e_ambe2450", "ambe2450", False),
+                                             ("e2e_ambe2400_soft", "ambe2400", True)])
+def test_e2e_ambe_on_card(cuda_device, name, codec, soft):
+    """AMBE goldens through the port on the card, B2 launched twice per
+    soft frame (_golden_on_card)."""
+    _golden_on_card(cuda_device, name, codec, soft)
+
+
+def _unvoiced_inputs(c, device):
+    """unvoiced_wola inputs in the ranges of tests/test_pallas.py, an
+    eighth of the lanes at w0 = 0 (the AMBE erasure model) and an eighth
+    at L = 56."""
+    rng = np.random.default_rng(c)
+    L = rng.integers(9, 57, c).astype(np.int32)
+    L[c // 8: c // 4] = 56
+    w0 = (2.0 * np.pi * 0.4875 / (L + 0.25)).astype(np.float32)
+    w0[: c // 8] = 0.0
+    arrays = (w0, L, rng.uniform(0, 500, (57, c)).astype(np.float32),
+              rng.integers(0, 2, (57, c)).astype(np.int32),
+              rng.uniform(-400, 400, (128, c)).astype(np.float32),
+              rng.uniform(0, 53125, (256, c)).astype(np.float32))
+    return [torch.as_tensor(a, device=device) for a in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [16, 1000, 32768])
+def test_unvoiced_kernel_matches_plain(cuda_device, c):
+    """B3 against its plain version at ragged and full widths: max |err| /
+    max |ref| < 1e-4 on add and on the new previousUw; the w0 = 0 lanes
+    give a zero new previousUw."""
+    args = _unvoiced_inputs(c, cuda_device)
+    before = unvoiced.LAUNCHES
+    out = unvoiced.unvoiced_wola(*args)
+    torch.cuda.synchronize()
+    assert unvoiced.LAUNCHES == before + 1
+    ref = unvoiced.unvoiced_wola_reference(*args)
+    for o, r in zip(out, ref):
+        assert ((o - r).abs().max() / r.abs().max()).item() < 1e-4
+    assert (out[1][:, : c // 8] == 0).all()
+
+
+@pytest.mark.cuda
+def test_unvoiced_kernel_rejects_bad_inputs(cuda_device):
+    args = _unvoiced_inputs(64, cuda_device)
+    for i, bad, match in ((0, args[0].double(), "float32"), (3, args[3][:56], "int32"),
+                          (4, args[4].cpu(), "cuda"),
+                          (5, torch.empty((64, 256), device=cuda_device).T, "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            unvoiced.unvoiced_wola(*args[:i], bad, *args[i + 1:])

@@ -15,7 +15,7 @@ from mbe_tpu.ops.pallas import voiced as jvoiced
 from mbe_tpu_torch.models import speech
 from mbe_tpu_torch.models import state as st
 from mbe_tpu_torch.ops import noise, synth
-from mbe_tpu_torch.ops.cuda import voiced
+from mbe_tpu_torch.ops.cuda import unvoiced, voiced
 
 torch.set_num_threads(1)
 
@@ -108,7 +108,7 @@ def test_unvoiced_fft_matches_jax():
     scale = max(np.abs(add_ref).max(), np.abs(uw_ref).max())
     assert np.abs(add - add_ref).max() / scale < 1e-4
     assert np.abs(uw - uw_ref).max() / scale < 1e-4
-    band = synth.band_of_bins(torch.from_numpy(args[0])).numpy()
+    band = unvoiced.band_of_bins(torch.from_numpy(args[0])).numpy()
     np.testing.assert_array_equal(band, np.asarray(jsynth.band_of_bins(args[0])))
 
 

@@ -183,9 +183,15 @@ def test_step_int16_and_unported_paths(vectors):
     _, seq16, _ = pipeline.run_sequence("imbe7200", frame[None], state,
                                         config=DecoderConfig(int16_output=True))
     assert torch.equal(seq16[0], pcm16)
+    # the AMBE codecs are ported: a [C, 4, 24] frame runs with a carried
+    # enh state and raises without one
     for codec in ("ambe2450", "ambe2400"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pipeline.step(codec, frame, state)
+        ambe_frame = torch.from_numpy(vectors(f"e2e_{codec}")["frames"][0])
+        _, a, r, d = pipeline.step(codec, ambe_frame,
+                                   st.init_state(16, carry_enh=True, device="cpu"))
+        assert a.shape == (16, 160) and d.shape == (16, 49) and (r["status"] == 0).all()
+        with pytest.raises(ValueError, match="carry_enh"):
+            pipeline.step(codec, ambe_frame, st.init_state(16, carry_enh=False, device="cpu"))
     # soft input at full reliability runs the soft path and flags it
     _, _, res_soft, _ = pipeline.step("imbe7200", frame, state,
                                       soft_rel=torch.full_like(frame, 255))

@@ -132,10 +132,13 @@ def test_precision_pins():
 
 
 def test_port_imports_neither_jax_nor_mbe_tpu():
-    """Static scan: no module of mbe_tpu_torch imports jax or mbe_tpu."""
+    """Static scan: no module of mbe_tpu_torch, nor chip_smoke.py (which
+    runs on a card machine with no jax), imports jax or mbe_tpu."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15
-    for path in files:
+    smoke = PKG.parent / "chip_smoke.py"
+    assert smoke.is_file()
+    for path in files + [smoke]:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """Per-layer profile of the PyTorch port's step on one NVIDIA GPU.
 
-    python3 tools/profile_torch_step.py [--channels 32768] [--steps 4] [--soft]
+    python3 tools/profile_torch_step.py [--channels 32768] [--steps 4]
+        [--codec imbe7200|ambe2450|ambe2400] [--soft]
 
-Wraps each layer of the IMBE 7200 step (hard, or with --soft random
+Wraps each layer of one codec's step (hard, or with --soft random
 reliabilities 0..255) in a torch.profiler `record_function` range and
 prints, per step: the wall time without the profiler, the device kernel
 count, device busy time and idle share, then host and device ms per
-layer. Kernels launched outside a torch op (voiced_sums and soft_decode,
-through ctypes) count in the step's device time but not in their layer's
-range.
+layer. Kernels launched outside a torch op (voiced_sums, soft_decode and
+unvoiced_wola, through ctypes) count in the step's device time but not in
+their layer's range.
 """
 
 import argparse
@@ -26,18 +27,34 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from mbe_tpu_torch import pipeline  # noqa: E402
-from mbe_tpu_torch.models import imbe, speech  # noqa: E402
+from mbe_tpu_torch.models import ambe, imbe, speech  # noqa: E402
 from mbe_tpu_torch.models.state import init_state  # noqa: E402
 
-LAYERS = [
-    (imbe, "decode_imbe7200_frame", "bit domain"),
-    (imbe, "decode_imbe4400_parms", "parameter decode"),
-    (imbe, "spectral_amp_enhance", "synthesis: enhance"),
-    (imbe.noise, "comfort_noise", "synthesis: comfort noise"),
-    (imbe, "synthesize_speech_core", "synthesis: core"),
+FRAME_SHAPE = {"imbe7200": (8, 23), "ambe2450": (4, 24), "ambe2400": (4, 24)}
+CORE = [
     (speech.synth, "render_voiced", "  core: render_voiced"),
     (speech.synth, "unvoiced_fft", "  core: unvoiced_fft"),
 ]
+
+
+def layers(codec):
+    """(module, function, tag) of each layer of `codec`'s step."""
+    if codec == "imbe7200":
+        return [
+            (imbe, "decode_imbe7200_frame", "bit domain"),
+            (imbe, "decode_imbe4400_parms", "parameter decode"),
+            (imbe, "spectral_amp_enhance", "synthesis: enhance"),
+            (imbe.noise, "comfort_noise", "synthesis: comfort noise"),
+            (imbe, "synthesize_speech_core", "synthesis: core"),
+        ] + CORE
+    return [
+        (ambe, "decode_ambe3600_frame", "bit domain"),
+        (ambe, f"decode_{codec}_parms", "parameter decode"),
+        (ambe, "spectral_amp_enhance", "synthesis: enhance"),
+        (ambe.noise, "comfort_noise", "synthesis: comfort noise"),
+        (ambe, "synthesize_speech_core", "synthesis: core"),
+        (ambe.synth, "render_tone", "synthesis: tones"),
+    ] + CORE
 
 
 def _label(mod, name, tag):
@@ -55,12 +72,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--channels", type=int, default=32768)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--codec", default="imbe7200", choices=tuple(FRAME_SHAPE))
     ap.add_argument("--soft", action="store_true", help="soft-decision input")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA device", file=sys.stderr)
         return 1
-    for mod, name, tag in LAYERS:
+    tags = layers(args.codec)
+    for mod, name, tag in tags:
         _label(mod, name, tag)
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -69,17 +88,17 @@ def main():
     dev = torch.device("cuda", 0)
     c, n = args.channels, args.steps
     rng = np.random.default_rng(0)
-    frames = torch.as_tensor(rng.integers(0, 2, (3 * n + 2, c, 8, 23), dtype=np.int8),
-                             device=dev)
+    frames = torch.as_tensor(rng.integers(0, 2, (3 * n + 2, c, *FRAME_SHAPE[args.codec]),
+                                          dtype=np.int8), device=dev)
     rel = (torch.as_tensor(rng.integers(0, 256, frames.shape, dtype=np.uint8), device=dev)
            if args.soft else None)
-    state = init_state(c, carry_enh=False, device=dev)
+    state = init_state(c, carry_enh=args.codec.startswith("ambe"), device=dev)
 
     def run(t0, t1):
         nonlocal state
         for t in range(t0, t1):
             with record_function("step"):
-                state, audio, _, _ = pipeline.step("imbe7200", frames[t], state,
+                state, audio, _, _ = pipeline.step(args.codec, frames[t], state,
                                                    None if rel is None else rel[t])
             audio.sum()
         torch.cuda.synchronize()
@@ -94,13 +113,13 @@ def main():
         run(2 + 2 * n, 2 + 3 * n)
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and e.name not in {"step"} | {tag for _, _, tag in LAYERS}]
+               and e.name not in {"step"} | {tag for _, _, tag in tags}]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3
-    print(f"C={c} {'soft' if args.soft else 'hard'}: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
+    print(f"{args.codec} C={c} {'soft' if args.soft else 'hard'}: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
           f"kernels/step; device busy {busy_ms:.3f} ms/step; idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     for e in prof.key_averages():
-        if e.key == "step" or e.key in {tag for _, _, tag in LAYERS}:
+        if e.key == "step" or e.key in {tag for _, _, tag in tags}:
             if e.cpu_time_total > 0:
                 print(f"{e.key:28s} host {e.cpu_time_total / n / 1e3:8.3f} ms/step "
                       f"(profiled), device {e.device_time_total / n / 1e3:8.3f} ms/step")
