@@ -9,7 +9,9 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      soft_decode (csrc/softecc.cu) and unvoiced_wola (csrc/unvoiced.cu),
      one nvcc each, started together;
   3. voiced_sums against its plain PyTorch version on the card at
-     C = 16, 1000 and 32768: max |err| / max |ref| < 2e-4, both timed;
+     C = 16, 1000 and 32768, an eighth of the lanes (at least 4) edge
+     lanes with steps s in {1e-4, 1e-3, pi - 1e-3, 3}: max |err| /
+     max |ref| < 2e-4, both timed;
   3b. soft_decode against its plain version for the three codebooks at
      R = 16, 1000 and 98304 rows (random, constant-7 and zero
      reliabilities): keys equal; both timed at the three launches of a
@@ -76,7 +78,8 @@ B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
 BF16_FLOP_S = 989e12   # tensor cores, bf16 in, FP32 accumulate
-COSF_OPS = 30          # FP32 instructions of one precise cosf (estimate)
+COSF_OPS = 30          # FP32 instructions of one precise cosf or sincosf (estimate)
+EDGE_S = (1e-4, 1e-3, np.pi - 1e-3, 3.0)  # voiced step of the edge lanes (phase 3)
 
 
 def card():
@@ -110,18 +113,25 @@ def cuda_ms(fn, reps):
 
 
 def kernel_inputs(c, device):
-    """Random voiced_sums inputs in the ranges of tests/test_pallas.py."""
+    """Random voiced_sums inputs in the ranges of tests/test_pallas.py. The
+    first max(4, c // 8) lanes are edge lanes: every harmonic step of both
+    banks is one of EDGE_S (by lane), and the bank and interpolated start
+    phases lie within 1e-3 below 6 rad."""
     rng = np.random.default_rng(SEED)
 
     def u(lo, hi, shape):
-        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32),
-                               device=device)
+        return rng.uniform(lo, hi, shape).astype(np.float32)
 
-    bank = [u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c))]
-    bank += [u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c))]
-    interp = [u(0, 4, (7, c)), u(-0.02, 0.02, (7, c)), u(0, 6, (7, c)),
-              u(0, 2, (7, c)), u(-2e-3, 2e-3, (7, c))]
-    return bank + interp + [u(0, 1, (160,)), u(0, 1, (160,))]
+    arrays = [u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
+              u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
+              u(0, 4, (7, c)), u(-0.02, 0.02, (7, c)), u(0, 6, (7, c)),
+              u(0, 2, (7, c)), u(-2e-3, 2e-3, (7, c)), u(0, 1, (160,)), u(0, 1, (160,))]
+    edge = min(c, max(4, c // 8))
+    for i in (2, 5):
+        arrays[i][:, :edge] = np.resize(np.float32(EDGE_S), edge)
+    for i in (1, 4, 8):
+        arrays[i][:, :edge] = u(6 - 1e-3, 6, (arrays[i].shape[0], edge))
+    return [torch.as_tensor(a, device=device) for a in arrays]
 
 
 def phase_kernel(voiced, device):
@@ -149,9 +159,16 @@ def phase_kernel(voiced, device):
     # the windows.
     nbytes = 4 * (6 * 56 * c + 5 * 7 * c + 2 * 160 + 160 * c)
     ops = c * ((3 * 2 * 56 + 6 * 7) * COSF_OPS + 160 * (2 * 2 * 56 + 10 * 7 + 3))
-    # this kernel's design restarts the recurrence every 16 samples and
-    # evaluates the interpolated harmonics directly: 4480 cosf per channel
-    design_ms = c * (4480 * COSF_OPS + 2 * 56 * 160 * 2) / FP32_OPS_S * 1e3
+    # this kernel's design, per channel: sincosf of phi and s for each of
+    # the 112 bank harmonics and, in each of the 10 spans, of theta(n0),
+    # delta(n0) and 2q for the 7 interpolated ones (434); per bank harmonic
+    # the rotor's 4 squarings (4 ops each) and per span t1 (2) and the
+    # rotation to the next span (4), 76 ops; an FMA and an add per bank
+    # harmonic-sample; per interpolated harmonic-sample the amplitude and
+    # the sum (2) and two rotations (8); the two window FMAs per sample
+    design_ops = (434 * COSF_OPS + 112 * 76 + 2 * 56 * 160 * 2 + 7 * 160 * 10
+                  + 2 * 160)
+    design_ms = c * design_ops / FP32_OPS_S * 1e3
     b = bound(nbytes, fp32_ops=ops)
     print(f"kernel voiced_sums C={c}: bound {b['bound_ms']!r} ms ({b['bound_by']}); "
           f"FP32 floor of this design {design_ms!r} ms")
@@ -279,9 +296,15 @@ def phase_unvoiced(unvoiced, device):
     # counted as one FP32 lane-op.
     nbytes = 4 * (788 * c + 256 + 256 + 3 * 160)
     ops = c * (2 * 5120 + 256 + 3 * 128 + 128 + 4 * 57 + 2 * 256 + 4 * 160)
-    # this kernel's design: direct DFTs after one radix-2 split, 128 x 128
-    # complex terms forward and as many inverse, 65,536 FMAs per channel
-    design_ms = c * 65536 / FP32_OPS_S * 1e3
+    # this kernel's design, per channel: the window (256 ops); two 128-point
+    # complex FFTs of 7 radix-2 stages x 64 butterflies, ~10 ops each (a
+    # complex product and two complex adds); the split and the Hermitian
+    # pack, ~12 and ~14 ops per bin; band ids, ~25 ops per bin (an IEEE
+    # division, floor and four ceil); |X|^2 and the band sums, 3 per bin;
+    # the scalors, ~20 per band; the WOLA, 4 per sample
+    design_ops = (256 + 2 * 7 * 64 * 10 + 128 * (12 + 14 + 25 + 3) + 56 * 20
+                  + 160 * 4)
+    design_ms = c * design_ops / FP32_OPS_S * 1e3
     b = bound(nbytes, fp32_ops=ops)
     print(f"kernel unvoiced_wola C={c}: bound {b['bound_ms']!r} ms ({b['bound_by']}); "
           f"FP32 floor of this design {design_ms!r} ms [{card()}]")

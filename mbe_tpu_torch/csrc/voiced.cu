@@ -7,29 +7,36 @@
 //             + w_cur[n]  * sum_{l<56} g_cur[l][c]  * cos(phi_cur0[l][c] + n*s_cur[l][c])
 //             + sum_{l<7} (a0[l][c] + n*da[l][c]) * cos(phi0[l][c] + alpha[l][c]*n + q[l][c]*n*n)
 //
-// What bounds it on this card: the cosines. Evaluated directly that is
-// 56*2*160 + 7*160 = 19,040 precise cosf per channel-frame (~620M at
-// C = 32768), against ~21 MB written and ~49 MB read, so the kernel is
-// bound by the FP32 pipes, not by HBM.
+// What bounds it on this card: FP32 operations. The function reads ~49 MB
+// and writes ~21 MB at C = 32768 (0.021 ms at 3.35 TB/s), while even the
+// cheapest exact form needs ~36k FP32 ops per channel for the two banks'
+// per-sample sums alone.
 //
-// What the design does about it:
-// - The two windowed banks run the Chebyshev three-term recurrence
-//   t[n+1] = 2cos(s)*t[n] - t[n-1] with the gain folded into t (t[n] =
-//   g*cos(phi + n*s)): one FMA per harmonic-sample. Each block of 16
-//   samples restarts it from two precise cosf, so the drift of the
-//   recurrence (a step-k error grows as sin((n-k)s)/sin(s) <= n-k) stays
-//   below ~16^2/2 ulp; 3 cosf per harmonic and block instead of 16.
-// - The interpolated path (7 harmonics) evaluates its quadratic phase
-//   directly with cosf per sample.
-// - Precise cosf only (no --use_fast_math, no __cosf): phase arguments
-//   reach hundreds of radians, where the fast approximations lose digits.
-// - One thread per (channel, block of 16 samples): threadIdx.x walks the
-//   channels, so every [56, C] row read and every [160, C] row written is
-//   coalesced; blockIdx.y picks the sample block, which gives 10x the
-//   threads of one-thread-per-channel and keeps the SMs full at any C.
-//   The tail of C is masked, so any channel count runs.
-// - The windows multiply the summed banks once per sample at the end
-//   (they do not depend on l).
+// What the design does about it (seed once per harmonic, rotate to each span):
+// - One block per 32 channels, 320 threads: lane = channel, warp = one
+//   16-sample span. Every [56, C] row read and every [160, C] row written
+//   is a coalesced 128-byte row.
+// - Seeds, once per (channel, harmonic): precise sincosf of phi and of the
+//   step s, then the rotor (cos 16s, sin 16s) by four squarings of
+//   (cos s, sin s). Walking g*e^{i phi} by that rotor gives each span's
+//   start g*e^{i(phi + n0 s)} by exact rotation: the angle error grows by
+//   a few ulp per squaring and per span, and is not amplified by 1/sin s.
+//   8 harmonics at a time are seeded by warps 0-7 into shared memory
+//   (t0 = g cos(phi + n0 s) and t1 = g cos(phi + (n0+1) s) per span, and
+//   2 cos s): 21.5 KB, each row read back as one 128-byte row.
+// - Within a span, the Chebyshev recurrence t[n+1] = 2cos(s) t[n] - t[n-1]
+//   with the gain folded into t: one FMA and one add per harmonic-sample.
+//   Spans stay 16 samples long: as s -> 0 the recurrence's sensitivity to
+//   the rounding of 2cos(s) grows as n^2/2 (~1.5e-5 g at n = 16).
+// - The interpolated path (7 harmonics) runs the TPU kernel's double rotor
+//   (voiced.py:117-119): the oscillator rotates by delta(n), delta(n) by
+//   the constant 2q. Each span seeds it with precise sincosf of theta(n0),
+//   delta(n0) = alpha + q(2 n0 + 1) and 2q.
+// - Precise math only (no --use_fast_math): phases reach hundreds of
+//   radians, where the fast approximations lose digits.
+// - Each bank's window multiplies its summed span once per sample (the
+//   windows do not depend on l). The tail of C is masked, so any channel
+//   count runs.
 
 #include <cuda_runtime.h>
 
@@ -38,33 +45,51 @@ namespace {
 constexpr int kHarm = 56;
 constexpr int kInterp = 7;
 constexpr int kFrame = 160;
-constexpr int kSpan = 16;  // samples per thread; the recurrence restarts here
-constexpr int kThreads = 128;
+constexpr int kSpan = 16;                  // samples per thread; the recurrence restarts here
+constexpr int kSpans = kFrame / kSpan;     // 10: one warp each
+constexpr int kCB = 32;                    // channels per block: one lane each
+constexpr int kThreads = kCB * kSpans;     // 320
+constexpr int kChunk = 8;                  // harmonics seeded per pass, one warp each
+constexpr int kSeedRows = 2 * kSpans + 1;  // t0 and t1 of every span, then 2cos(s)
+static_assert(kHarm % kChunk == 0 && kChunk <= kSpans, "seeding warps");
 
-__device__ __forceinline__ void oscillator_bank(const float* __restrict__ gain,
-                                                const float* __restrict__ phi,
-                                                const float* __restrict__ step,
-                                                int C, int c, int n0,
-                                                float (&acc)[kSpan]) {
-#pragma unroll 1
-  for (int l = 0; l < kHarm; ++l) {
+// (re, im) *= (br, bi)
+__device__ __forceinline__ void rotate(float& re, float& im, float br, float bi) {
+  const float r = re * br - im * bi;
+  im = re * bi + im * br;
+  re = r;
+}
+
+// The span seeds of harmonic l of one bank for the channel of this lane.
+__device__ __forceinline__ void seed_harmonic(const float* __restrict__ gain,
+                                              const float* __restrict__ phi,
+                                              const float* __restrict__ step, int l, int c,
+                                              bool live, int C, float (*seed)[kCB], int lane) {
+  float g = 0.0f, p = 0.0f, s = 0.0f;
+  if (live) {
     const size_t i = static_cast<size_t>(l) * C + c;
-    const float g = gain[i];
-    const float p = phi[i];
-    const float s = step[i];
-    float t0 = g * cosf(p + static_cast<float>(n0) * s);
-    float t1 = g * cosf(p + static_cast<float>(n0 + 1) * s);
-    const float c2 = 2.0f * cosf(s);
-    acc[0] += t0;
-    acc[1] += t1;
-#pragma unroll
-    for (int k = 2; k < kSpan; ++k) {
-      const float t2 = c2 * t1 - t0;
-      acc[k] += t2;
-      t0 = t1;
-      t1 = t2;
-    }
+    g = gain[i];
+    p = phi[i];
+    s = step[i];
   }
+  float sp, cp, ss, cs;
+  sincosf(p, &sp, &cp);
+  sincosf(s, &ss, &cs);
+  float rr = cs, ri = ss;  // (cos s, sin s) -> (cos 16s, sin 16s)
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float r2 = rr * rr - ri * ri;
+    ri = 2.0f * rr * ri;
+    rr = r2;
+  }
+  float zr = g * cp, zi = g * sp;  // g e^{i(phi + n0 s)}, n0 = 16 j
+#pragma unroll
+  for (int j = 0; j < kSpans; ++j) {
+    seed[2 * j][lane] = zr;
+    seed[2 * j + 1][lane] = zr * cs - zi * ss;
+    rotate(zr, zi, rr, ri);
+  }
+  seed[2 * kSpans][lane] = 2.0f * cs;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -75,37 +100,79 @@ voiced_sums_kernel(const float* __restrict__ gain_prev, const float* __restrict_
                    const float* __restrict__ phi0, const float* __restrict__ alpha,
                    const float* __restrict__ q, const float* __restrict__ w_prev,
                    const float* __restrict__ w_cur, float* __restrict__ out, int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  const int n0 = blockIdx.y * kSpan;
+  __shared__ float seed[kChunk][kSeedRows][kCB];
 
-  float sum_prev[kSpan], sum_cur[kSpan], sum_interp[kSpan];
+  const int lane = threadIdx.x % kCB;
+  const int span = threadIdx.x / kCB;  // also the harmonic a warp seeds
+  const int c = blockIdx.x * kCB + lane;
+  const bool live = c < C;
+  const int n0 = span * kSpan;
+
+  float acc[kSpan], bank[kSpan];
 #pragma unroll
-  for (int k = 0; k < kSpan; ++k) {
-    sum_prev[k] = 0.0f;
-    sum_cur[k] = 0.0f;
-    sum_interp[k] = 0.0f;
-  }
-  oscillator_bank(gain_prev, phi_prev, step_prev, C, c, n0, sum_prev);
-  oscillator_bank(gain_cur, phi_cur0, step_cur, C, c, n0, sum_cur);
+  for (int k = 0; k < kSpan; ++k) acc[k] = bank[k] = 0.0f;
 
 #pragma unroll 1
-  for (int l = 0; l < kInterp; ++l) {
-    const size_t i = static_cast<size_t>(l) * C + c;
-    const float a = amp0[i], da = damp[i], p = phi0[i], al = alpha[i], qq = q[i];
+  for (int b = 0; b < 2; ++b) {
+    const float* gain = b ? gain_cur : gain_prev;
+    const float* phi = b ? phi_cur0 : phi_prev;
+    const float* step = b ? step_cur : step_prev;
+#pragma unroll 1
+    for (int l0 = 0; l0 < kHarm; l0 += kChunk) {
+      if (span < kChunk) seed_harmonic(gain, phi, step, l0 + span, c, live, C, seed[span], lane);
+      __syncthreads();
+#pragma unroll 2
+      for (int h = 0; h < kChunk; ++h) {
+        float t0 = seed[h][2 * span][lane];
+        float t1 = seed[h][2 * span + 1][lane];
+        const float c2 = seed[h][2 * kSpans][lane];
+        bank[0] += t0;
+        bank[1] += t1;
+#pragma unroll
+        for (int k = 2; k < kSpan; ++k) {
+          const float t2 = c2 * t1 - t0;
+          bank[k] += t2;
+          t0 = t1;
+          t1 = t2;
+        }
+      }
+      __syncthreads();
+    }
+    const float* w = b ? w_cur : w_prev;
 #pragma unroll
     for (int k = 0; k < kSpan; ++k) {
-      const float n = static_cast<float>(n0 + k);
-      sum_interp[k] += (a + n * da) * cosf(p + al * n + qq * n * n);
+      acc[k] = fmaf(w[n0 + k], bank[k], acc[k]);
+      bank[k] = 0.0f;
     }
   }
 
+  const float nf0 = static_cast<float>(n0);
+#pragma unroll 1
+  for (int l = 0; l < kInterp; ++l) {
+    float a = 0.0f, da = 0.0f, p = 0.0f, al = 0.0f, qq = 0.0f;
+    if (live) {
+      const size_t i = static_cast<size_t>(l) * C + c;
+      a = amp0[i];
+      da = damp[i];
+      p = phi0[i];
+      al = alpha[i];
+      qq = q[i];
+    }
+    float os, oc, ds, dc, rs, rc;
+    sincosf(p + al * nf0 + qq * nf0 * nf0, &os, &oc);  // theta(n0)
+    sincosf(al + qq * (2.0f * nf0 + 1.0f), &ds, &dc);  // theta(n0 + 1) - theta(n0)
+    sincosf(2.0f * qq, &rs, &rc);
 #pragma unroll
-  for (int k = 0; k < kSpan; ++k) {
-    const int n = n0 + k;
-    out[static_cast<size_t>(n) * C + c] =
-        w_prev[n] * sum_prev[k] + w_cur[n] * sum_cur[k] + sum_interp[k];
+    for (int k = 0; k < kSpan; ++k) {
+      acc[k] = fmaf(a + (nf0 + static_cast<float>(k)) * da, oc, acc[k]);
+      rotate(oc, os, dc, ds);
+      rotate(dc, ds, rc, rs);
+    }
   }
+
+  if (!live) return;
+#pragma unroll
+  for (int k = 0; k < kSpan; ++k) out[static_cast<size_t>(n0 + k) * C + c] = acc[k];
 }
 
 }  // namespace
@@ -119,9 +186,18 @@ extern "C" int mbe_voiced_sums(const float* gain_prev, const float* phi_prev,
                                const float* alpha, const float* q, const float* w_prev,
                                const float* w_cur, float* out, int C, void* stream) {
   if (C <= 0) return static_cast<int>(cudaGetLastError());
-  const dim3 grid((C + kThreads - 1) / kThreads, kFrame / kSpan);
+  const dim3 grid((C + kCB - 1) / kCB);
   voiced_sums_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       gain_prev, phi_prev, step_prev, gain_cur, phi_cur0, step_cur, amp0, damp, phi0,
       alpha, q, w_prev, w_cur, out, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of voiced_sums_kernel the runtime keeps resident per SM.
+extern "C" int mbe_voiced_sums_blocks_per_sm() {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, voiced_sums_kernel, kThreads, 0) ==
+                 cudaSuccess
+             ? n
+             : -1;
 }

@@ -42,31 +42,45 @@ def _snr_db(ref, test):
     return 10.0 * np.log10(p_sig / max(p_err, 1e-30))
 
 
-def _kernel_inputs(c, device):
-    """voiced_sums inputs in the ranges of tests/test_pallas.py."""
+def _kernel_inputs(c, device, edge=False):
+    """voiced_sums inputs in the ranges of tests/test_pallas.py; with
+    `edge`, the first 16 lanes step every harmonic of both banks by one of
+    1e-4, 1e-3, pi - 1e-3 and 3 (by lane), from start phases within 1e-3
+    below 6 rad."""
     rng = np.random.default_rng(7)
 
     def u(lo, hi, shape):
-        return torch.as_tensor(rng.uniform(lo, hi, shape).astype(np.float32), device=device)
+        return rng.uniform(lo, hi, shape).astype(np.float32)
 
-    return [u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
-            u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
-            u(0, 4, (7, c)), u(-0.02, 0.02, (7, c)), u(0, 6, (7, c)),
-            u(0, 2, (7, c)), u(-2e-3, 2e-3, (7, c)), u(0, 1, (160,)), u(0, 1, (160,))]
+    arrays = [u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
+              u(0, 5, (56, c)), u(0, 6, (56, c)), u(0, 3, (56, c)),
+              u(0, 4, (7, c)), u(-0.02, 0.02, (7, c)), u(0, 6, (7, c)),
+              u(0, 2, (7, c)), u(-2e-3, 2e-3, (7, c)), u(0, 1, (160,)), u(0, 1, (160,))]
+    if edge:
+        for i in (2, 5):
+            arrays[i][:, :16] = np.resize(np.float32([1e-4, 1e-3, np.pi - 1e-3, 3.0]), 16)
+        for i in (1, 4, 8):
+            arrays[i][:, :16] = u(6 - 1e-3, 6, (arrays[i].shape[0], 16))
+    return [torch.as_tensor(a, device=device) for a in arrays]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [16, 1000, 32768])
-def test_voiced_kernel_matches_plain(cuda_device, c):
-    """Kernel vs plain version at ragged and full widths: max |err| /
-    max |ref| < 2e-4 (the recurrence drift bound of the TPU kernel)."""
-    args = _kernel_inputs(c, cuda_device)
+@pytest.mark.parametrize("c,edge", [(16, False), (1000, False), (32768, False), (1000, True)],
+                         ids=["16", "1000", "32768", "edge1000"])
+def test_voiced_kernel_matches_plain(cuda_device, c, edge):
+    """Kernel vs plain version at ragged and full widths, and with small-s
+    edge lanes: max |err| / max |ref| < 2e-4 (the recurrence drift bound
+    of the TPU kernel), over all lanes and over the edge lanes alone."""
+    args = _kernel_inputs(c, cuda_device, edge)
     before = voiced.LAUNCHES
     out = voiced.voiced_sums(*args)
     torch.cuda.synchronize()
     assert voiced.LAUNCHES == before + 1
     ref = voiced.voiced_sums_reference(*args)
     assert ((out - ref).abs().max() / ref.abs().max()).item() < 2e-4
+    if edge:
+        err = (out[:, :16] - ref[:, :16]).abs().max() / ref[:, :16].abs().max()
+        assert err.item() < 2e-4
 
 
 @pytest.mark.cuda
@@ -192,9 +206,10 @@ def _unvoiced_inputs(c, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("c", [16, 1000, 32768])
+@pytest.mark.parametrize("c", [16, 33, 1000, 32768])
 def test_unvoiced_kernel_matches_plain(cuda_device, c):
-    """B3 against its plain version at ragged and full widths: max |err| /
+    """B3 against its plain version at ragged (33: one lane in a partial
+    block) and full widths: max |err| /
     max |ref| < 1e-4 on add and on the new previousUw; the w0 = 0 lanes
     give a zero new previousUw."""
     args = _unvoiced_inputs(c, cuda_device)

@@ -50,74 +50,137 @@ def test_plain_matches_jax(monkeypatch, pallas):
     np.testing.assert_array_equal(got[1][:, :16], 0.0)
 
 
+F = np.float32
+BITREV7 = np.array([int(f"{k:07b}"[::-1], 2) for k in range(128)])
+
+
+def _twiddle(tab, idx, sign):
+    """e^{sign 2 pi i idx / 256} from the cosine table (sin x = cos(x - pi/2))."""
+    idx = np.asarray(idx)
+    return tab[idx & 255], F(sign) * tab[(idx + 192) & 255]
+
+
+def _fft_stage(re, im, tab, h, dif):
+    """One radix-2 stage of half-size h on [128, C] complex elements, as
+    csrc/unvoiced.cu's fft_group does it: decimation in frequency with
+    forward twiddles, or in time with inverse ones."""
+    c = re.shape[1]
+    shape = (128 // (2 * h), 2, h, c)
+    re, im = re.reshape(shape), im.reshape(shape)
+    wr, wi = _twiddle(tab, np.arange(h) * (128 // h), -1 if dif else 1)
+    wr, wi = wr[:, None], wi[:, None]
+    ur, ui, xr, xi = re[:, 0], im[:, 0], re[:, 1], im[:, 1]
+    if dif:
+        vr, vi = ur - xr, ui - xi
+        out = (ur + xr, ui + xi, vr * wr - vi * wi, vr * wi + vi * wr)
+    else:
+        vr, vi = xr * wr - xi * wi, xr * wi + xi * wr
+        out = (ur + vr, ui + vi, ur - vr, ui - vi)
+    re = np.stack([out[0], out[2]], axis=1).reshape(128, c)
+    im = np.stack([out[1], out[3]], axis=1).reshape(128, c)
+    return re, im
+
+
+def _split_bin(tab, k, zr, zi, pr, pi):
+    ar, ai = F(0.5) * (zr + pr), F(0.5) * (zi - pi)
+    br, bi = F(0.5) * (zr - pr), F(0.5) * (zi + pi)
+    wr, wi = _twiddle(tab, k, -1)
+    tr, ti = wr * br - wi * bi, wr * bi + wi * br
+    return ar + ti, ai - tr
+
+
+def _pack_bin(tab, k, yr, yi, pr, pi):
+    qr, qi = yr - pr, yi + pi
+    vr, vi = _twiddle(tab, k, 1)
+    ur, ui = vr * qr - vi * qi, vr * qi + vi * qr
+    return (yr + pr) - ui, (yi - pi) + ur
+
+
+def _band_ids(m):
+    """band_of_bin of bins 0..127 ([128, C], 57 = no band), two correction rounds."""
+    kf = np.arange(128, dtype=F)[:, None]
+    safe = m > 0
+    band = np.floor(kf / np.where(safe, m, F(1)) + F(0.5))
+    for _ in range(2):
+        lo = np.ceil((band - F(0.5)) * m)
+        hi = np.ceil((band + F(0.5)) * m)
+        band = band + (kf >= hi) - (kf < lo)
+    return np.where(safe & (band >= 0) & (band <= 56), band, 57).astype(np.int64)
+
+
 def _kernel_emulation(w0, L, Ml, Vl, prev, noise):
-    """The arithmetic of csrc/unvoiced.cu in numpy float32: the radix-2
-    split of both DFTs against the 256-entry cosine table (-sin read 64
-    entries on), band ids of bins 0..127 with two correction rounds,
-    sequential per-band energy sums, band 57 as the zero row."""
+    """The arithmetic of csrc/unvoiced.cu in numpy float32: the 128-point
+    complex FFT of z[m] = x[2m] + i x[2m+1] by radix-2 DIF stages with
+    twiddles from the 256-entry cosine table, the split into bins 0..127,
+    band energies per (band, channel) over bins a_min..b_max-1 in
+    ascending order, band ids of bins 0..127 with two correction rounds,
+    band 57 as the zero row, the Hermitian pack of the scaled half
+    spectrum, the inverse FFT by radix-2 DIT stages, and the WOLA by the
+    reciprocal of its denominator."""
     win256, w_prev, w_curr, denom = (x.numpy()[:, 0] for x in unvoiced._windows("cpu"))
     tab = unvoiced._cos_table("cpu").numpy()
     c = w0.shape[0]
     x = noise * win256[:, None]
-    halves = (x[:128] + x[128:], x[:128] - x[128:])
-    n = np.arange(128)
+    re, im = x[0::2], x[1::2]
+    for h in (64, 32, 16, 8, 4, 2, 1):
+        re, im = _fft_stage(re, im, tab, h, dif=True)
+    zr, zi = re[BITREV7], im[BITREV7]                      # Z[k], natural order
     k = np.arange(128)
-    idx = (n[:, None] * k[None, :]) & 255                    # [n, k]
-    cr, ci = tab[idx], tab[(idx + 64) & 255]
-    re = np.where((k % 2 == 0)[:, None], cr.T @ halves[0], cr.T @ halves[1])  # [k, C]
-    im = np.where((k % 2 == 0)[:, None], ci.T @ halves[0], ci.T @ halves[1])
+    partner = (128 - k) % 128
+    kk = k[:, None]
+    xr, xi = _split_bin(tab, kk, zr, zi, zr[partner], zi[partner])
 
-    m = np.float32(unvoiced.M_256_OVER_2PI) * w0
-    kf = k.astype(np.float32)[:, None]
-    safe = m > 0
-    band = np.floor(kf / np.where(safe, m, np.float32(1)) + np.float32(0.5))
-    for _ in range(2):
-        lo = np.ceil((band - np.float32(0.5)) * m)
-        hi = np.ceil((band + np.float32(0.5)) * m)
-        band = band + (kf >= hi) - (kf < lo)
-    band = np.where(safe & (band >= 0) & (band <= 56), band, 57).astype(np.int64)
-
-    mag2 = re * re + im * im
-    energy = np.zeros((58, c), np.float32)
-    for kk in range(128):
-        np.add.at(energy, (band[kk], np.arange(c)), mag2[kk])
-    lf = np.arange(57, dtype=np.float32)[:, None]
-    count = (np.minimum(np.ceil((lf + np.float32(0.5)) * m), np.float32(128))
-             - np.maximum(np.ceil((lf - np.float32(0.5)) * m), np.float32(0)))
-    e = energy[:57]
+    m = F(unvoiced.M_256_OVER_2PI) * w0
+    lf = np.arange(57, dtype=F)[:, None]
+    a_min = np.maximum(np.ceil((lf - F(0.5)) * m), F(0))
+    b_max = np.minimum(np.ceil((lf + F(0.5)) * m), F(128))
+    count = b_max - a_min
+    e = np.zeros((57, c), F)
+    for b in range(128):                                   # ascending bins
+        inside = (a_min <= b) & (b < b_max)
+        e = np.where(inside, e + (xr[b] * xr[b] + xi[b] * xi[b]), e)
     ok = ((lf >= 1) & (lf <= L[None, :]) & (Vl == 0) & (count > 0) & (e > 1e-10))
-    mean = e / np.where(count > 0, count, np.float32(1))
-    scal = np.where(ok, np.float32(unvoiced.UNVOICED_SCALE_COEFF) * Ml
-                    / np.sqrt(np.where(mean > 0, mean, np.float32(1))), np.float32(0))
-    scal = np.concatenate([scal, np.zeros((1, c), np.float32)])
-    f = np.take_along_axis(scal, band, 0) * np.where(k == 0, 1.0, 2.0).astype(np.float32)[:, None] \
-        / np.float32(256)
-    yre, yim = re * f, im * f
-    idx_inv = (n[:, None] * k[None, :]) & 255                # [n, k]
-    terms_r, terms_i = tab[idx_inv], tab[(idx_inv + 64) & 255]
-    even, odd = k % 2 == 0, k % 2 == 1
-    ev = terms_r[:, even] @ yre[even] + terms_i[:, even] @ yim[even]
-    od = terms_r[:, odd] @ yre[odd] + terms_i[:, odd] @ yim[odd]
-    uw = np.concatenate([ev + od, ev - od])                  # [256, C]
+    mean = e / np.where(count > 0, count, F(1))
+    scal = np.where(ok, F(unvoiced.UNVOICED_SCALE_COEFF) * Ml
+                    / np.sqrt(np.where(mean > 0, mean, F(1))), F(0)) * F(1 / 256)
+    scal = np.concatenate([scal, np.zeros((1, c), F)])
+    f = np.take_along_axis(scal, _band_ids(m), 0)
+    yr, yi = xr * f, xi * f
+    yi[0] = 0                                              # bin 0 is real
+    pr, pi = yr[partner], yi[partner]
+    pr[0] = pi[0] = 0                                      # bin 128 carries no band
+    zr, zi = _pack_bin(tab, kk, yr, yi, pr, pi)
 
-    pp = np.concatenate([prev, np.zeros((32, c), np.float32)])
-    cp = np.concatenate([np.zeros((32, c), np.float32), uw[:128]])
-    add = np.where((denom > 1e-10)[:, None],
-                   (w_prev[:, None] * pp + w_curr[:, None] * cp)
-                   / np.where(denom > 1e-10, denom, 1)[:, None], 0.0)
-    return add.astype(np.float32), uw[128:]
+    re, im = np.empty_like(zr), np.empty_like(zi)
+    re[BITREV7], im[BITREV7] = zr, zi                      # slot bitrev(k) holds element k
+    for h in (1, 2, 4, 8, 16, 32, 64):
+        re, im = _fft_stage(re, im, tab, h, dif=False)
+    uw = np.empty((256, c), F)
+    uw[0::2], uw[1::2] = re, im
+
+    pp = np.concatenate([prev, np.zeros((32, c), F)])
+    cp = np.concatenate([np.zeros((32, c), F), uw[:128]])
+    rcp = np.where(denom > 1e-10, F(1) / np.where(denom > 1e-10, denom, F(1)), F(0))
+    add = (w_prev[:, None] * pp + w_curr[:, None] * cp) * rcp[:, None]
+    return add, uw[128:]
 
 
-def test_kernel_arithmetic_matches_plain():
-    """The CUDA kernel's split-DFT, band-id and sequential band-sum
-    arithmetic, emulated in numpy at a ragged C = 100, against the plain
-    version: within 1e-4 of max |ref|; the band ids of bins 0..127 equal
-    the plain band_of_bins."""
-    args = _inputs(100, 11)
+@pytest.mark.parametrize("c", [100, 33])
+def test_kernel_arithmetic_matches_plain(c):
+    """The CUDA kernel's FFT, band-id and per-(band, channel) band-sum
+    arithmetic, emulated in numpy at ragged C (100: three full blocks of
+    32 and a partial one; 33: one lane in the last block) against the
+    plain version: within 1e-4 of max |ref|; the band ids of bins 0..127
+    equal the plain band_of_bins; the w0 = 0 lanes are silent."""
+    args = _inputs(c, 11)
     got = _kernel_emulation(*args)
     want = [x.numpy() for x in unvoiced.unvoiced_wola_reference(*map(torch.from_numpy, args))]
     assert _rel_err(got, want) < TOL
-    np.testing.assert_array_equal(got[1][:, :12], 0.0)
+    np.testing.assert_array_equal(got[1][:, :c // 8], 0.0)
+    plain_band = unvoiced.band_of_bins(torch.from_numpy(args[0])).numpy()[:128]
+    m = F(unvoiced.M_256_OVER_2PI) * args[0]
+    np.testing.assert_array_equal(np.where((plain_band < 0) | (plain_band > 56), 57, plain_band),
+                                  _band_ids(m))
 
 
 def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
