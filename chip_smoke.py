@@ -13,9 +13,9 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      lanes with steps s in {1e-4, 1e-3, pi - 1e-3, 3}: max |err| /
      max |ref| < 2e-4, both timed;
   3b. soft_decode against its plain version for the three codebooks at
-     R = 16, 1000 and 98304 rows (random, constant-7 and zero
-     reliabilities): keys equal; both timed at the three launches of a
-     soft imbe7200 step at C = 32768;
+     R = 16, 33, 1000 and 98304 rows (random, all-255, constant-7 and
+     zero reliabilities): keys equal; both timed at the three launches of
+     a soft imbe7200 step at C = 32768 (C0, R = 32768 Golay, among them);
   3c. unvoiced_wola against its plain version on the card at C = 16, 1000
      and 32768 (an eighth of the lanes at w0 = 0, an eighth at L = 56):
      max |err| / max |ref| < 1e-4 on add and on the new previousUw, both
@@ -44,7 +44,7 @@ card could take for the function on this run's inputs: the larger of the
 bytes it must move over the memory rate and its operations of each type
 over that type's peak rate (H100 SXM data sheet, dense). The operations
 are those the function needs, not those of the port's kernel design; the
-design's own FP32 floor is printed beside it. The last lines are the
+design's own floor is printed beside it. The last lines are the
 kernels JSON, the card, and {"ok": true, "device": {...}}. There is no
 CPU path: without a CUDA device, or without the package beside this
 script, it exits nonzero.
@@ -68,7 +68,7 @@ SNR_MIN_DB = 60.0      # the reference's float-synthesis bar (tests/test_e2e.py)
 KERNEL_C = (16, 1000, 32768)
 SCALE_C = 32768        # bench.py's default channel count
 SCALE_T = (8, 48)
-SOFT_R = (16, 1000, 3 * SCALE_C)
+SOFT_R = (16, 33, 1000, 3 * SCALE_C)
 PLAIN_ROWS = 16384     # row chunk of the plain soft decode ([rows, 4096] tensors)
 SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of each
 UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
@@ -188,13 +188,15 @@ def bound(nbytes, fp32_ops=0, bf16_flops=0):
 
 
 def soft_inputs(ecc, softecc, code, rows, device):
-    """Random bits; reliabilities random for half the rows, 7 for a
-    quarter and 0 for the last quarter (the tie-break cases); idx_hard
-    from the port's hard decoder, as the main path makes it."""
+    """Random bits; reliabilities random for half the rows, 255 for an
+    eighth (the largest sums), 7 for an eighth and 0 for the last quarter
+    (the tie-break cases); idx_hard from the port's hard decoder, as the
+    main path makes it."""
     n = softecc.CODES[code].n
     rng = np.random.default_rng(SEED + rows)
     rel = rng.integers(0, 256, (rows, n))
-    rel[rows // 2:] = 7
+    rel[rows // 2:] = 255
+    rel[5 * rows // 8:] = 7
     rel[3 * rows // 4:] = 0
     bits = torch.as_tensor(rng.integers(0, 2, (rows, n)), dtype=torch.int32, device=device)
     return (bits, torch.as_tensor(rel, dtype=torch.int32, device=device),
@@ -202,9 +204,9 @@ def soft_inputs(ecc, softecc, code, rows, device):
 
 
 def phase_softecc(ecc, softecc, device):
-    """Keys equal at every (code, rows); kernel and plain timed at the
-    launches of one soft imbe7200 step at C = SCALE_C (and the 7100
-    Hamming launch, printed only)."""
+    """Keys equal at every (code, rows) and at each timed launch; kernel
+    and plain timed at the launches of one soft imbe7200 step at C =
+    SCALE_C (and the 7100 Hamming launch, printed only)."""
     def plain(bits, rel, idx, code):
         return torch.cat([softecc.soft_decode_keys_reference(
             bits[lo:lo + PLAIN_ROWS], rel[lo:lo + PLAIN_ROWS], idx[lo:lo + PLAIN_ROWS], code)
@@ -222,9 +224,14 @@ def phase_softecc(ecc, softecc, device):
             worst = max(worst, err)
 
     step = [("golay", SCALE_C), ("golay", 3 * SCALE_C), ("hamstd", 3 * SCALE_C)]
-    total = dict(ms=0.0, plain_ms=0.0, nbytes=0, fp32_ops=0, bf16_flops=0, design=0)
+    total = dict(ms=0.0, plain_ms=0.0, nbytes=0, fp32_ops=0, bf16_flops=0, design_bf16=0,
+                 design_fminf=0)
     for code, rows in step + [("ham7100", 2 * SCALE_C)]:
         args = soft_inputs(ecc, softecc, code, rows, device)
+        key = softecc.soft_decode_keys(*args, code)
+        err = (key.long() - plain(*args, code).long()).abs().max().item()
+        assert err == 0, f"soft_decode {code} R={rows}: keys differ"
+        worst = max(worst, err)
         ms = cuda_ms(lambda: softecc.soft_decode_keys(*args, code), 10)
         plain_ms = cuda_ms(lambda: plain(*args, code), 2)
         spec = softecc.CODES[code]
@@ -236,22 +243,27 @@ def phase_softecc(ecc, softecc, device):
         # data_lo) + 2 MACs, then one min of the key on the CUDA cores.
         work = dict(nbytes=rows * (8 * spec.n + 8), fp32_ops=rows * ncw,
                     bf16_flops=2 * rows * ncw * (2 * spec.n - spec.data_lo + 2))
-        # this kernel's design: n+1 FP32 FMAs and a min per (row, codeword)
-        design = rows * ncw * (spec.n + 2)
+        # this kernel's design: the product at the padded K (48 Golay, 32
+        # Hamming) on the tensor cores, and one fminf per (row, codeword)
+        design = dict(bf16=2 * rows * ncw * softecc.k_padded(code), fminf=rows * ncw)
         b = bound(**work)
-        print(f"kernel soft_decode {code} R={rows}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-              f"bound {b['bound_ms']!r} ms ({b['bound_by']}), FP32 floor of this design "
-              f"{design / FP32_OPS_S * 1e3!r} ms")
+        print(f"kernel soft_decode {code} R={rows}: max |key - plain key| = {err}, "
+              f"kernel {ms!r} ms, plain {plain_ms!r} ms, "
+              f"bound {b['bound_ms']!r} ms ({b['bound_by']}); this design's floor: padded-K "
+              f"product {design['bf16'] / BF16_FLOP_S * 1e3!r} ms, fminf "
+              f"{design['fminf'] / FP32_OPS_S * 1e3!r} ms")
         if (code, rows) in step:
             total["ms"] += ms
             total["plain_ms"] += plain_ms
-            total["design"] += design
+            total["design_bf16"] += design["bf16"]
+            total["design_fminf"] += design["fminf"]
             for k in work:
                 total[k] += work[k]
     b = bound(total["nbytes"], total["fp32_ops"], total["bf16_flops"])
     print(f"kernel soft_decode per soft imbe7200 step at C={SCALE_C}: kernel {total['ms']!r} ms, "
-          f"plain {total['plain_ms']!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}), "
-          f"FP32 floor of this design {total['design'] / FP32_OPS_S * 1e3!r} ms [{card()}]")
+          f"plain {total['plain_ms']!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); "
+          f"this design's floor: padded-K product {total['design_bf16'] / BF16_FLOP_S * 1e3!r} "
+          f"ms, fminf {total['design_fminf'] / FP32_OPS_S * 1e3!r} ms [{card()}]")
     return dict(max_abs_err=worst, ms=total["ms"], plain_ms=total["plain_ms"], **b)
 
 

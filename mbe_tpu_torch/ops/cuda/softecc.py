@@ -74,19 +74,49 @@ def soft_decode_keys_reference(bits, rel, idx_hard, code):
     return key.amin(dim=-1)
 
 
-@lru_cache(maxsize=None)
-def _kernel_tables(code, device):
-    """The kernel's codebook: float32 [ncw, n+1] (the codeword's bits, then
-    64*popcount(cw[data_lo:]) + c % 64, see csrc/softecc.cu) and the
-    packed codewords int32 [ncw], LSB-first."""
+def k_padded(code):
+    """Columns of the kernel's A and B operands: n q columns, n - data_lo h
+    columns and two ones, padded to wgmma's k16 (48 Golay, 32 Hamming)."""
+    spec = CODES[code]
+    return -(-(2 * spec.n - spec.data_lo + 2) // 16) * 16
+
+
+def operand_b(code):
+    """The kernel's B operand, float32 [K, ncw] of integers exact in bf16:
+    rows 2048*cw_i, -128*cw_j (j >= data_lo), 64*popcount(cw[data_lo:]),
+    c % 64, then zeros; A[r] @ B[:, c] plus the row constant is
+    64*v + (c % 64) (csrc/softecc.cu)."""
     spec = CODES[code]
     cw = np.asarray(getattr(T, spec.codebook), np.int64)
-    ncw = cw.shape[0]
-    tab = np.zeros((ncw, spec.n + 1), np.float32)
-    tab[:, :spec.n] = cw
-    tab[:, spec.n] = 64 * cw[:, spec.data_lo:].sum(axis=1) + np.arange(ncw) % 64
+    ncw, n, lo = cw.shape[0], spec.n, spec.data_lo
+    b = np.zeros((k_padded(code), ncw), np.float32)
+    b[:n] = 2048 * cw.T
+    b[n:2 * n - lo] = -128 * cw[:, lo:].T
+    b[2 * n - lo] = 64 * cw[:, lo:].sum(axis=1)
+    b[2 * n - lo + 1] = np.arange(ncw) % 64
+    return b
+
+
+def wgmma_layout(b):
+    """B [K, ncw] in the byte order the kernel's wgmma descriptors read
+    (K-major, no swizzle): codewords in groups of 8, each group 8 x K
+    bf16 as K/8 core matrices of 8 codewords x 8 k (128 contiguous bytes,
+    one codeword's 8 k values per 16 bytes). Flat bf16 [K * ncw]."""
+    k, ncw = b.shape
+    t = torch.from_numpy(np.ascontiguousarray(b.T)).to(torch.bfloat16)  # [ncw, K]
+    return t.reshape(ncw // 8, 8, k // 8, 8).permute(0, 2, 1, 3).reshape(-1)
+
+
+@lru_cache(maxsize=None)
+def _kernel_tables(code, device):
+    """The kernel's codebook: its B operand in descriptor order (bf16,
+    `wgmma_layout(operand_b(code))`) and the packed codewords int32
+    [ncw], LSB-first."""
+    spec = CODES[code]
+    cw = np.asarray(getattr(T, spec.codebook), np.int64)
     packed = (cw << np.arange(spec.n)).sum(axis=1).astype(np.int32)
-    return torch.from_numpy(tab).to(device), torch.from_numpy(packed).to(device)
+    return (wgmma_layout(operand_b(code)).to(device),
+            torch.from_numpy(packed).to(device))
 
 
 def load_library():

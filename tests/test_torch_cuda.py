@@ -132,12 +132,14 @@ def test_e2e_imbe7200_on_card(cuda_device):
 
 def _soft_inputs(code, rows, device):
     """Random bits; reliabilities random in the first half of the rows,
-    7 in the third quarter and 0 in the last (the tie-break cases); the
-    hard decode's codeword index."""
+    255 in the fifth eighth (the largest sums), 7 in the sixth and 0 in
+    the last quarter (the tie-break cases); the hard decode's codeword
+    index."""
     n = softecc.CODES[code].n
     rng = np.random.default_rng(rows)
     rel = rng.integers(0, 256, (rows, n))
-    rel[rows // 2:] = 7
+    rel[rows // 2:] = 255
+    rel[5 * rows // 8:] = 7
     rel[3 * rows // 4:] = 0
     bits = torch.as_tensor(rng.integers(0, 2, (rows, n)), dtype=torch.int32, device=device)
     return (bits, torch.as_tensor(rel, dtype=torch.int32, device=device),
@@ -145,11 +147,13 @@ def _soft_inputs(code, rows, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows", [16, 1000, 98304])
+@pytest.mark.parametrize("rows", [16, 33, 1000, 32768, 98304])
 @pytest.mark.parametrize("code", ["golay", "hamstd", "ham7100"])
 def test_softecc_kernel_matches_plain(cuda_device, code, rows):
-    """B2 against its plain version at ragged and full row counts, tie
-    cases included: the int32 keys are equal (tolerance 0)."""
+    """B2 against its plain version at ragged (not a multiple of the
+    64-row tile) and full row counts, tie cases and all-255 rows included:
+    the int32 keys are equal (tolerance 0), which also shows that the
+    tensor cores accumulate the bf16 products exactly."""
     bits, rel, idx = _soft_inputs(code, rows, cuda_device)
     before = softecc.LAUNCHES
     key = softecc.soft_decode_keys(bits, rel, idx, code)

@@ -5,8 +5,11 @@ integers.
 
 Kernel B2 itself runs only on the card (tests/test_torch_cuda.py); here
 its plain version is held against the JAX Pallas kernel in interpret
-mode, and the kernel's own arithmetic (csrc/softecc.cu), emulated step by
-step in numpy, against the plain version."""
+mode, and the kernel's own arithmetic (csrc/softecc.cu: the bf16 wgmma
+product, a float min per 64-codeword group), emulated step by step in
+numpy, against the plain version. Its operands are checked exact in bf16,
+and its codebook layout is read back by the wgmma descriptors' address
+arithmetic."""
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +27,7 @@ torch.set_num_threads(1)
 
 R = 256
 CODES = ("golay", "hamstd", "ham7100")
-REL_CASES = ("random", "const7", "zero")
+REL_CASES = ("random", "const7", "zero", "max255")
 
 
 def _inputs(code, case, rows=R, seed=42):
@@ -35,7 +38,8 @@ def _inputs(code, case, rows=R, seed=42):
     b = rng.integers(0, 2, (rows, n)).astype(np.int32)
     rel = {"random": rng.integers(0, 256, (rows, n)),
            "const7": np.full((rows, n), 7),
-           "zero": np.zeros((rows, n))}[case].astype(np.int32)
+           "zero": np.zeros((rows, n)),
+           "max255": np.full((rows, n), 255)}[case].astype(np.int32)
     return b, rel, ecc.hard_index(torch.from_numpy(b), code).numpy()
 
 
@@ -58,29 +62,45 @@ def test_plain_keys_match_pallas_interpret(code, case):
     np.testing.assert_array_equal(got, np.asarray(want))
 
 
-def _kernel_emulation(b, rel, idx_hard, code):
-    """csrc/softecc.cu's arithmetic in numpy: float32 dot products over the
-    kernel's table, a float min per tile of 64 codewords with the tile
-    place in the low 6 bits, then the exact hard candidate."""
+def _bf16(x):
+    """x through torch.bfloat16 and back to float32."""
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def _operand_a(b, rel, code):
+    """The kernel's A rows (csrc/softecc.cu:load_rows), int64 [R, K]:
+    q_i = rel_i * (1 - 2 b_i), then h_j = b_j for j >= data_lo, two ones,
+    zeros to K."""
     spec = softecc.CODES[code]
-    tab, packed = (x.numpy() for x in softecc._kernel_tables(code, torch.device("cpu")))
+    n, lo = spec.n, spec.data_lo
+    b, rel = b.astype(np.int64), rel.astype(np.int64)
+    a = np.zeros((len(b), softecc.k_padded(code)), np.int64)
+    a[:, :n] = rel * (1 - 2 * b)
+    a[:, n:2 * n - lo] = b[:, lo:]
+    a[:, 2 * n - lo:2 * n - lo + 2] = 1
+    return a
+
+
+def _kernel_emulation(b, rel, idx_hard, code):
+    """csrc/softecc.cu's arithmetic in numpy: A and B as bf16 values, the
+    product in float32, a float min over each thread's 16 columns of a
+    64-codeword group (m64n128 accumulator: column 64g + 8j + 2*(lane % 4)
+    + e), the int key once per (thread, group), an int min over groups,
+    slices and the lane quad, then the exact hard candidate."""
+    spec = softecc.CODES[code]
+    packed = softecc._kernel_tables(code, torch.device("cpu"))[1].numpy()
     n, lo, sd = spec.n, spec.data_lo, spec.shift_diff
     b, w = b.astype(np.int64), rel.astype(np.int64)
-    h = np.where(np.arange(n) >= lo, b, 0)
-    coef = np.concatenate([64 * (32 * w * (1 - 2 * b) - 2 * h),
-                           np.ones((len(b), 1), np.int64)], axis=1)
-    # every partial sum of the dot product is an integer below 2^24
-    assert (np.abs(coef[:, :n]).sum(axis=1) + np.abs(tab[:, n]).max() < 2 ** 24).all()
-    d = coef.astype(np.float32) @ tab.T                       # [R, ncw], exact
-    ncw = tab.shape[0]
-    tmin = d.reshape(len(b), ncw // 64, 64).min(axis=-1).astype(np.int64)
-    t = tmin + (64 * (32 * (w * b).sum(axis=1) + h.sum(axis=1) + 16))[:, None]
-    keys = ((t >> 6) << sd) | (np.arange(0, ncw, 64)[None, :] + (t & 63))
-    best = keys.min(axis=1)
+    d = _bf16(_operand_a(b, w, code)) @ _bf16(softecc.operand_b(code))  # [R, ncw], exact
+    rows, ncw = d.shape
+    m = d.reshape(rows, ncw // 64, 8, 4, 2).min(axis=(2, 4)).astype(np.int64)  # [R, group, lane % 4]
+    t = m + (64 * (32 * (w * b).sum(axis=1) + b[:, lo:].sum(axis=1) + 16))[:, None, None]
+    keys = ((t >> 6) << sd) | (np.arange(0, ncw, 64)[None, :, None] + (t & 63))
+    best = keys.reshape(rows, -1).min(axis=1)
     bword = (b << np.arange(n)).sum(axis=1)
     mism = bword ^ packed[np.clip(idx_hard, 0, ncw - 1)]
     score = (w * ((mism[:, None] >> np.arange(n)) & 1)).sum(axis=1)
-    diffs = np.array([bin(int(m) >> lo).count("1") for m in mism])
+    diffs = np.array([bin(int(x) >> lo).count("1") for x in mism])
     hard = ((32 * score + diffs) << sd) | idx_hard
     return np.where((idx_hard >= 0) & (idx_hard < ncw), np.minimum(best, hard), best)
 
@@ -88,14 +108,73 @@ def _kernel_emulation(b, rel, idx_hard, code):
 @pytest.mark.parametrize("case", REL_CASES)
 @pytest.mark.parametrize("code", CODES)
 def test_kernel_arithmetic_matches_plain(code, case):
-    """The kernel's factored key (64*v + tile place in one exact float,
-    the hard candidate added at the end) gives the plain keys, at a ragged
-    row count and with out-of-range idx_hard rows (no candidate matches)."""
+    """The kernel's factored key (64*v + group place in one exact float
+    from the bf16 product, the hard candidate added at the end) gives the
+    plain keys, at a ragged row count and with out-of-range idx_hard rows
+    (no candidate matches)."""
     b, rel, idx = _inputs(code, case, rows=300, seed=5)
     idx[:3] = (-1, 4096, 1 << 20)
     want = softecc.soft_decode_keys(torch.from_numpy(b), torch.from_numpy(rel),
                                     torch.from_numpy(idx), code).numpy()
     np.testing.assert_array_equal(_kernel_emulation(b, rel, idx, code), want)
+
+
+@pytest.mark.parametrize("case", REL_CASES)
+@pytest.mark.parametrize("code", CODES)
+def test_kernel_operands_exact_in_bf16(code, case):
+    """Every A and B value survives a round trip through torch.bfloat16,
+    and the sum of |terms| of every (row, codeword) product stays below
+    2^24, so FP32 accumulation is exact in any order (max255 is the worst
+    case: 12,013,887 for Golay)."""
+    b, rel, _ = _inputs(code, case)
+    a = _operand_a(b, rel, code).astype(np.float32)
+    bb = softecc.operand_b(code)
+    np.testing.assert_array_equal(_bf16(a), a)
+    np.testing.assert_array_equal(_bf16(bb), bb)
+    terms = np.abs(a).astype(np.float64) @ np.abs(bb).astype(np.float64)
+    assert terms.max() < 2 ** 24
+
+
+# csrc/softecc.cu's descriptor arithmetic: a block's slice of 2048
+# codewords from shared-memory byte 0, LBO 128 B (the next core matrix
+# along K), SBO 16*K B (the next 8-codeword group), chunks of 128
+# codewords 128/8*K 16-byte units apart, k-steps 16 units (256 B) apart
+SLICE, CHUNK = 2048, 128
+
+
+def _descriptor(addr, lbo, sbo):
+    return ((addr & 0x3FFFF) >> 4) | (((lbo & 0x3FFFF) >> 4) << 16) | (((sbo & 0x3FFFF) >> 4) << 32)
+
+
+def _wgmma_reads_b(smem, desc):
+    """What m64n128k16 reads as B [16, 128] for `desc` (K-major, no
+    swizzle): element (k, n) at start + (n / 8) SBO + (k / 8) LBO +
+    (n % 8) 16 + (k % 8) 2 bytes."""
+    assert desc >> 62 == 0 and (desc >> 49) & 7 == 0  # no swizzle, base offset 0
+    start, lbo, sbo = (((desc >> f) & 0x3FFF) << 4 for f in (0, 16, 32))
+    k, n = np.meshgrid(np.arange(16), np.arange(CHUNK), indexing="ij")
+    addr = start + (n // 8) * sbo + (k // 8) * lbo + (n % 8) * 16 + (k % 8) * 2
+    assert addr.max() < smem.size * 2
+    return smem[addr // 2]
+
+
+@pytest.mark.parametrize("code", CODES)
+def test_wgmma_layout_reads_back_by_descriptor(code):
+    """The host-laid codebook, read back by the kernel's descriptors (every
+    slice, chunk and k-step), is the logical [K, ncw] B operand."""
+    b = softecc.operand_b(code)
+    kp, ncw = b.shape
+    flat = softecc.wgmma_layout(b).float().numpy()
+    got = np.full_like(b, np.nan)
+    for sl in range(ncw // SLICE):
+        smem = flat[sl * SLICE * kp:(sl + 1) * SLICE * kp]
+        desc0 = _descriptor(0, 128, 16 * kp)
+        for j in range(SLICE // CHUNK):
+            for s in range(kp // 16):
+                c0 = sl * SLICE + j * CHUNK
+                got[16 * s:16 * s + 16, c0:c0 + CHUNK] = _wgmma_reads_b(
+                    smem, desc0 + j * (CHUNK // 8 * kp) + 16 * s)
+    np.testing.assert_array_equal(got, b)
 
 
 @pytest.mark.parametrize("code", CODES)
