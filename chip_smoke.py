@@ -36,10 +36,26 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      the fixed per-run cost). Each run's wall and process CPU seconds are
      printed. Random frames are mostly error frames, but the step's work
      does not depend on frame content: B2 searches every codeword, and
-     every FSM branch is computed and then selected lane by lane.
+     every FSM branch is computed and then selected lane by lane;
+  6. the public API (mbe_tpu_torch.api) on the card: the eight
+     process_*_framef and process_*_soft_framef entry points over the e2e
+     goldens (as phase 4), process_imbe7200x4400_frame against
+     float_to_short of the framef output, the three Data paths
+     (process_*_dataf, no C0/C4 counts) over the fsm_* goldens (flags
+     exact, >= 60 dB per frame), the staged ecc_c0 -> demodulate ->
+     ecc_data chain against decode_*_frame for 4 codecs x hard/soft at
+     C = 32768 random frames (tolerance 0), and host ms per API call
+     against pipeline.step's, with the host validation of a numpy frame;
+  7. state and streaming: a C = 32768 imbe7200 snapshot after 4 steps
+     (utils.checkpoint save, load on the card, 4 more steps) bit-exact
+     against 8 uninterrupted steps, with the npz bytes and the save and
+     load seconds; StreamingDecoder("imbe7200", 32768, depth=2) over 8
+     ticks of packed bytes, unpacked on the device and on the host,
+     equal to direct steps, with wall ms per tick beside run_sequence's.
 
-Every kernel launch counter is zeroed just before each phase-5 path and
-read just after it. `bound_ms` in the kernels JSON is the least time the
+Every kernel launch counter is zeroed just before each path of phases
+4-7 and read just after it; each path asserts its B1, B2 and B3 counts.
+`bound_ms` in the kernels JSON is the least time the
 card could take for the function on this run's inputs: the larger of the
 bytes it must move over the memory rate and its operations of each type
 over that type's peak rate (H100 SXM data sheet, dense). The operations
@@ -72,8 +88,6 @@ SOFT_R = (16, 33, 1000, 3 * SCALE_C)
 PLAIN_ROWS = 16384     # row chunk of the plain soft decode ([rows, 4096] tensors)
 SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of each
 UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
-FRAME_SHAPE = {"imbe7200": (8, 23), "imbe7100": (7, 24), "ambe2450": (4, 24),
-               "ambe2400": (4, 24)}
 B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
@@ -346,28 +360,41 @@ def check_outputs(name, vec, pcm, res, dbits=None):
     assert s16 >= SNR_MIN_DB, f"{name}: int16 stream {s16} dB"
 
 
-def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=False):
-    """One golden vector through `step` (or `run_sequence`) on the card."""
+def zero(kernels):
+    """Set every kernel's launch counter to 0 (just before a path)."""
+    for m in kernels.values():
+        m.LAUNCHES = 0
+
+
+def counts(kernels):
+    """Every kernel's launch count (just after a path)."""
+    return {k: m.LAUNCHES for k, m in kernels.items()}
+
+
+def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=False, step=None):
+    """One golden vector through `step` (pipeline.step unless given:
+    step(frame, state, rel) -> (state, audio, res, dbits)) or
+    `run_sequence` on the card."""
     vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
     state = init_state(C, rng_seed=vec["seeds"], device=device)
     frames = torch.as_tensor(vec["frames"], device=device)
     rel = torch.as_tensor(vec["rel"], device=device) if soft else None
-    before = {k: m.LAUNCHES for k, m in kernels.items()}
+    step = step or (lambda frame, st, r: pipeline.step(codec, frame, st, r))
+    zero(kernels)
     if sequence:
         state, pcm, res = pipeline.run_sequence(codec, frames, state, rel)
         dbits = None
     else:
         pcm, res, dbits = [], [], []
         for t in range(T):
-            state, audio, r, d = pipeline.step(codec, frames[t], state,
-                                               None if rel is None else rel[t])
+            state, audio, r, d = step(frames[t], state, None if rel is None else rel[t])
             pcm.append(audio)
             res.append(r)
             dbits.append(d.cpu().numpy())
         pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
                            np.stack(dbits))
-    launches = {k: m.LAUNCHES - before[k] for k, m in kernels.items()}
+    launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
     assert launches == want, f"{name}: kernel launches {launches} in {T} frames, want {want}"
@@ -389,7 +416,7 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
     ({name: module}) zeroed before it and read after it."""
     rng = np.random.default_rng(SEED)
     t_max = max(SCALE_T)
-    shape = (t_max, SCALE_C, *FRAME_SHAPE[codec])
+    shape = (t_max, SCALE_C, *pipeline.FRAME_SHAPES[codec])
     frames = torch.as_tensor(rng.integers(0, 2, shape, dtype=np.int8), device=device)
     rel = (torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=device)
            if soft else None)
@@ -410,8 +437,7 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
         return dt, cpu
 
     torch.cuda.reset_peak_memory_stats(device)
-    for m in kernels.values():
-        m.LAUNCHES = 0
+    zero(kernels)
     run(2)  # warm-up: device tables, allocator
     times = {T: [] for T in SCALE_T}
     cpu = {T: [] for T in SCALE_T}
@@ -420,7 +446,7 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
             dt, c = run(T)
             times[T].append(dt)
             cpu[T].append(c)
-    launches = {k: m.LAUNCHES for k, m in kernels.items()}
+    launches = counts(kernels)
     steps = 2 + reps * sum(SCALE_T)
     per_step = dict(voiced_sums=1, unvoiced_wola=1,
                     soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0)
@@ -436,6 +462,231 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
           f"kernel launches {launches} over {steps} steps [{card()}]")
     return launches
 
+API_NAME = {"imbe7200": "imbe7200x4400", "imbe7100": "imbe7100x4400",
+            "ambe2450": "ambe3600x2450", "ambe2400": "ambe3600x2400"}
+DATAF = {"imbe7200": "process_imbe4400_dataf", "ambe2450": "process_ambe2450_dataf",
+         "ambe2400": "process_ambe2400_dataf"}
+# B2 launches of the staged chain (ecc_c0, then one per Golay or Hamming
+# block of ecc_data) and of the fused frame decode, per soft frame
+B2_STAGED = {"imbe7200": 7, "imbe7100": 6, "ambe2450": 2, "ambe2400": 2}
+API_REPS = 10          # calls per host-time measurement in phase 6
+STREAM_TICKS = 8       # ticks of the phase-7 streaming run
+CKPT_STEPS = 4         # steps before and after the phase-7 snapshot
+
+
+def staged_decode(api, codec, frame, rel):
+    """ecc_c0 -> demodulate -> ecc_data (-> convert_imbe7100to7200) through
+    the API: (parameter bits [C, nbits], c0, protected, c4 or None)."""
+    name = API_NAME[codec]
+    fr1, c0 = getattr(api, f"ecc_{name}_c0")(frame, rel)
+    fr2 = getattr(api, f"demodulate_{name}_data")(fr1)
+    out = getattr(api, f"ecc_{name}_data")(fr2, rel)
+    d, prot, c4 = out if len(out) == 3 else (*out, None)
+    if codec == "imbe7100":
+        d = api.convert_imbe7100to7200(d)
+    return d, c0, prot, c4
+
+
+def host_ms(fn, reps=API_REPS):
+    """(host ms per call to issue `fn`, wall ms per call once the card has
+    finished), over `reps` calls after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    issued = time.perf_counter()
+    torch.cuda.synchronize()
+    done = time.perf_counter()
+    return (issued - t0) / reps * 1e3, (done - t0) / reps * 1e3
+
+
+def phase_api(api, pipeline, kernels, device):
+    """Phase 6: the public API on the card."""
+    # the eight frame entry points over the e2e goldens
+    for codec, name in API_NAME.items():
+        for soft in (False, True):
+            fn = getattr(api, f"process_{name}_soft_framef" if soft else f"process_{name}_framef")
+
+            def step(frame, st, rel, fn=fn, soft=soft):
+                return fn(frame, rel, st) if soft else fn(frame, st)
+            golden(pipeline, api.init_mbe_parms, kernels, device,
+                   f"e2e_{codec}_soft" if soft else f"e2e_{codec}", codec, soft, step=step)
+    # the int16 entry point is float_to_short of the float one, frame by frame
+    vec = dict(np.load(VECTORS / "e2e_imbe7200.npz"))
+    state = api.init_mbe_parms(vec["frames"].shape[1], vec["seeds"], device=device)
+    for frame in torch.as_tensor(vec["frames"], device=device):
+        _, pcm16, _, _ = api.process_imbe7200x4400_frame(frame, state)
+        state, audio, _, _ = api.process_imbe7200x4400_framef(frame, state)
+        assert torch.equal(pcm16, api.float_to_short(audio)), "process_imbe7200x4400_frame"
+    print("api: process_*_framef and process_*_soft_framef over the eight e2e goldens "
+          "bit-exact; process_imbe7200x4400_frame == float_to_short(framef)")
+
+    # the Data paths over the crafted parameter streams (no C0/C4 counts)
+    fsm_flags = (("erasure", api.PROCESS_FLAG_ERASURE), ("tone", api.PROCESS_FLAG_TONE),
+                 ("repeat", api.PROCESS_FLAG_REPEAT), ("mute", api.PROCESS_FLAG_MUTE))
+    for codec, fname in DATAF.items():
+        vec = dict(np.load(VECTORS / f"fsm_{codec}.npz"))
+        T = vec["dbits"].shape[0]
+        state = api.init_mbe_parms(1, np.uint32(vec["seed"]), device=device)
+        zero(kernels)
+        worst = np.inf
+        for t in range(T):
+            audio, state, fsm = getattr(api, fname)(vec["dbits"][t][None], state,
+                                                    np.array([vec["totals"][t]], np.int32))
+            flags = sum(bit for k, bit in fsm_flags if k in fsm and bool(fsm[k][0]))
+            assert flags == int(vec["flags"][t]), f"fsm_{codec} t={t}: flags {flags:#x}"
+            assert int(fsm["status"][0]) == 0
+            worst = min(worst, snr_db(vec["pcm"][t], audio[0].cpu().numpy()))
+        launches = counts(kernels)
+        assert launches == dict(voiced_sums=T, soft_decode=0, unvoiced_wola=T), \
+            f"{fname}: kernel launches {launches} in {T} frames"
+        print(f"api {fname} over fsm_{codec}: T={T} flags exact, worst frame "
+              f"{float(worst)!r} dB, kernel launches {launches}")
+        assert worst >= SNR_MIN_DB, f"fsm_{codec}: worst frame {worst} dB"
+
+    # the staged chain equals the fused frame decode at full width
+    rng = np.random.default_rng(SEED)
+    for codec, name in API_NAME.items():
+        shape = (SCALE_C, *pipeline.FRAME_SHAPES[codec])
+        frame = torch.as_tensor(rng.integers(0, 2, shape), dtype=torch.int32, device=device)
+        for soft in (False, True):
+            rel = (torch.as_tensor(rng.integers(0, 256, shape), dtype=torch.int32, device=device)
+                   if soft else None)
+            zero(kernels)
+            d, c0, prot, c4 = staged_decode(api, codec, frame, rel)
+            staged = counts(kernels)
+            zero(kernels)
+            d_ref, res = getattr(api, f"decode_{name}_frame")(frame, rel)
+            fused = counts(kernels)
+            assert staged["voiced_sums"] == staged["unvoiced_wola"] == fused["voiced_sums"] \
+                == fused["unvoiced_wola"] == 0
+            staged, fused = staged["soft_decode"], fused["soft_decode"]
+            same = (torch.equal(d, d_ref) and torch.equal(c0, res["c0_errors"])
+                    and torch.equal(prot, res["protected_errors"])
+                    and (c4 is None or torch.equal(c4, res["c4_errors"])))
+            print(f"api staged {codec} {'soft' if soft else 'hard'} C={SCALE_C}: equal to "
+                  f"decode_{name}_frame {same}; soft_decode launches staged {staged}, "
+                  f"fused {fused}")
+            assert same, f"staged {codec} soft={soft} differs from the frame decode"
+            assert (staged, fused) == ((B2_STAGED[codec], B2_PER_SOFT_STEP[codec]) if soft
+                                       else (0, 0))
+
+    # host time per call at full width: the API against pipeline.step, and
+    # the host validation of a numpy frame
+    frame_np = rng.integers(0, 2, (SCALE_C, *pipeline.FRAME_SHAPES["imbe7200"]))
+    frame_np = frame_np.astype(np.int32)
+    frame = torch.as_tensor(frame_np, device=device)
+    state = api.init_mbe_parms(SCALE_C, device=device)
+    t_step = host_ms(lambda: pipeline.step("imbe7200", frame, state))
+    t_api = host_ms(lambda: api.process_imbe7200x4400_framef(frame, state))
+    t_np = host_ms(lambda: api.process_imbe7200x4400_framef(frame_np, state))
+    t0 = time.perf_counter()
+    for _ in range(API_REPS):
+        api._check_bits(frame_np)
+    t_check = (time.perf_counter() - t0) / API_REPS * 1e3
+    print(f"api host ms per call imbe7200 hard C={SCALE_C} (issue, wall): pipeline.step "
+          f"{t_step!r}, process_imbe7200x4400_framef(tensor) {t_api!r}, (numpy) {t_np!r}; "
+          f"host validation of the numpy frame {t_check!r} ms [{card()}]")
+
+
+def phase_state(api, pipeline, checkpoint, streaming, kernels, device):
+    """Phase 7: a checkpoint at full width, then the streaming decoder."""
+    from mbe_tpu_torch.models.state import PARMS_FIELDS
+    from mbe_tpu_torch.ops.synth import float_to_short
+
+    rng = np.random.default_rng(SEED)
+    seeds = np.arange(1, SCALE_C + 1, dtype=np.uint32)
+    rows, cols = pipeline.FRAME_SHAPES["imbe7200"]
+    frames = torch.as_tensor(rng.integers(0, 2, (2 * CKPT_STEPS, SCALE_C, rows, cols)),
+                             dtype=torch.int32, device=device)
+
+    def run(state, lo, hi):
+        pcm = []
+        for t in range(lo, hi):
+            state, audio, _, _ = api.process_imbe7200x4400_framef(frames[t], state)
+            pcm.append(audio)
+        return state, pcm
+
+    def leaves(st):
+        parts = [getattr(st, p) for p in ("cur", "prev", "enh") if getattr(st, p) is not None]
+        return [getattr(p, k) for p in parts for k in PARMS_FIELDS] + [st.comfort_rng,
+                                                                       st.lcg_prime]
+
+    zero(kernels)
+    ref, pcm_ref = run(api.init_mbe_parms(SCALE_C, seeds, device=device), 0, 2 * CKPT_STEPS)
+    mid, pcm_a = run(api.init_mbe_parms(SCALE_C, seeds, device=device), 0, CKPT_STEPS)
+    path = ROOT / "build" / "chip_smoke_snapshot.npz"
+    path.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, mid)
+    t_save = time.perf_counter() - t0
+    nbytes = path.stat().st_size
+    t0 = time.perf_counter()
+    loaded = checkpoint.load(path, device=device)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    path.unlink()
+    fin, pcm_b = run(loaded, CKPT_STEPS, 2 * CKPT_STEPS)
+    launches = counts(kernels)
+    steps = 4 * CKPT_STEPS
+    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
+    same_pcm = all(torch.equal(a, b) for a, b in zip(pcm_ref, pcm_a + pcm_b))
+    same_state = all(torch.equal(a, b) for a, b in zip(leaves(ref), leaves(fin)))
+    print(f"checkpoint imbe7200 hard C={SCALE_C}: {CKPT_STEPS} steps, save, load(cuda), "
+          f"{CKPT_STEPS} steps == {2 * CKPT_STEPS} uninterrupted: PCM {same_pcm}, state "
+          f"{same_state}; npz {nbytes} bytes, save {t_save!r} s, load {t_load!r} s, kernel "
+          f"launches {launches} [{card()}]")
+    assert same_pcm and same_state, "checkpoint resume is not bit-exact"
+
+    # the streaming decoder over packed bytes against direct steps
+    bits = rng.integers(0, 2, (STREAM_TICKS, SCALE_C, rows * cols)).astype(np.uint8)
+    packed = np.packbits(bits, axis=-1)
+    frames = torch.as_tensor(bits.reshape(STREAM_TICKS, SCALE_C, rows, cols), device=device)
+    state = api.init_mbe_parms(SCALE_C, seeds, device=device)
+    direct = []
+    for t in range(STREAM_TICKS):
+        state, audio, res, _ = pipeline.step("imbe7200", frames[t], state)
+        direct.append((float_to_short(audio).cpu().numpy(),
+                       {k: v.cpu().numpy() for k, v in res.items()}))
+    for unpack in ("device", "host"):
+        dec = streaming.StreamingDecoder("imbe7200", SCALE_C, rng_seed=seeds, depth=2,
+                                         unpack=unpack, device=device)
+        torch.cuda.synchronize()
+        zero(kernels)
+        got, ticks = [], []
+        t0 = time.perf_counter()
+        for t in range(STREAM_TICKS):
+            got.extend(dec.push(packed[t]))
+            ticks.append(time.perf_counter())
+        got.extend(dec.flush())
+        wall = time.perf_counter() - t0
+        launches = counts(kernels)
+        assert launches == dict(voiced_sums=STREAM_TICKS, soft_decode=0,
+                                unvoiced_wola=STREAM_TICKS), launches
+        assert len(got) == STREAM_TICKS
+        for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
+            np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {unpack} t={t}")
+            for k in streaming._RES_KEYS:
+                np.testing.assert_array_equal(res[k], res_w[k], err_msg=f"streaming t={t} {k}")
+        push_ms = np.diff([t0] + ticks) * 1e3
+        print(f"streaming imbe7200 C={SCALE_C} depth=2 unpack={unpack}: {STREAM_TICKS} ticks "
+              f"equal to direct steps; {wall / STREAM_TICKS * 1e3!r} wall ms per tick, "
+              f"{float(np.median(push_ms[3:]))!r} median ms per push after the first 3 (which "
+              f"pin their buffers), push ms {push_ms.tolist()!r}, kernel launches {launches} "
+              f"[{card()}]")
+    for _ in range(2):  # run_sequence over the same frames, PCM read back
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, pcm, res = pipeline.run_sequence(
+            "imbe7200", frames, api.init_mbe_parms(SCALE_C, seeds, device=device), int16=True)
+        pcm = pcm.cpu().numpy()
+        wall = time.perf_counter() - t0
+    np.testing.assert_array_equal(pcm, np.stack([p for p, _ in direct]))
+    print(f"run_sequence imbe7200 C={SCALE_C} T={STREAM_TICKS}, int16 PCM read back: "
+          f"{wall / STREAM_TICKS * 1e3!r} wall ms per frame step [{card()}]")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -443,8 +694,10 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from mbe_tpu_torch import pipeline
+    from mbe_tpu_torch import api, pipeline
     from mbe_tpu_torch.models.state import init_state
+    from mbe_tpu_torch.parallel import streaming
+    from mbe_tpu_torch.utils import checkpoint
     from mbe_tpu_torch.ops import ecc
     from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
 
@@ -469,6 +722,8 @@ def main():
     for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
                         ("ambe2450", True), ("ambe2400", False)):
         paths[codec, soft] = phase_scale(pipeline, init_state, kernels, device, codec, soft)
+    phase_api(api, pipeline, kernels, device)
+    phase_state(api, pipeline, checkpoint, streaming, kernels, device)
 
     print(json.dumps({"kernels": [
         {"name": "voiced_sums", "route": "cuda",

@@ -12,6 +12,14 @@ multiplies (TF32 on the GPU) put a ~49 dB floor on the log2Ml predictor
 
 import torch
 
+__version__ = "0.1.0"
+
+
+def version_string() -> str:
+    """mbe_versionString equivalent (mbelib.c:323-326)."""
+    return __version__
+
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
@@ -19,4 +27,4 @@ torch.set_float32_matmul_precision("highest")
 from . import pipeline  # noqa: E402
 from .models.state import ChannelState, Parms, init_state  # noqa: E402
 
-__all__ = ["pipeline", "ChannelState", "Parms", "init_state"]
+__all__ = ["pipeline", "ChannelState", "Parms", "init_state", "version_string"]

@@ -524,13 +524,20 @@ def _decode_imbe7100_frame_soft(f, soft_rel):
 
 def process_imbe4400(words, total_errors, c0_errors, c4_errors,
                      cur: Parms, prev: Parms, enh: Parms, comfort_rng,
-                     lcg_prime):
-    """Batched mbe_processImbe4400Dataf (imbe7200x4400.c:780-888) for the
-    IMBE frame decoders, whose C0 and C4 counts are always valid.
+                     lcg_prime, c0_valid=None, c4_valid=None):
+    """Batched mbe_processImbe4400Dataf (imbe7200x4400.c:780-888).
 
+    c0_valid/c4_valid: [C] bool, whether the C0/C4 counts are known (the
+    data path), or None when they always are (the IMBE frame decoders).
+    Where c0 is unknown the repeat rule falls back to total_errors > 5
+    (imbe7200x4400.c:815-822); an unknown c4 counts as 0.
     Returns: (audio [160, C] f32, cur', prev', enh', comfort_rng',
     lcg_prime', flags dict of [C] bool: repeat, mute).
     """
+    if c0_valid is not None:
+        c0_errors = torch.where(c0_valid, c0_errors, 0)
+    if c4_valid is not None:
+        c4_errors = torch.where(c4_valid, c4_errors, 0)
     # -- prepare (imbe7200x4400.c:780-808) ---------------------------------
     cur = dataclasses.replace(
         cur,
@@ -545,8 +552,10 @@ def process_imbe4400(words, total_errors, c0_errors, c4_errors,
 
     # -- repeat decision (imbe7200x4400.c:810-840) --------------------------
     repeat_threshold = 10.0 + 40.0 * cur.errorRate
-    rep = (bad == 1) | ((c0_errors >= 2)
-                        & (total_errors.to(torch.float32) >= repeat_threshold))
+    rep = (c0_errors >= 2) & (total_errors.to(torch.float32) >= repeat_threshold)
+    if c0_valid is not None:
+        rep = torch.where(c0_valid, rep, total_errors > 5)
+    rep = (bad == 1) | rep
 
     headroom = rep & (prev.repeatCount > 3)
     use_last = rep & ~headroom

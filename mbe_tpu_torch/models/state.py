@@ -18,6 +18,7 @@ NBANDS = 57
 
 MUTING_THRESHOLD_IMBE = float(np.float32(0.0875))
 MUTING_THRESHOLD_AMBE = float(np.float32(0.096))
+MAX_FRAME_REPEATS = 4
 DEFAULT_LOCAL_ENERGY = 75000.0
 DEFAULT_AMPLITUDE_THRESHOLD = 20480
 
@@ -119,6 +120,29 @@ def _default_parms(c: int, device, ambe: bool = False) -> Parms:
     )
 
 
+def checked_device(device) -> torch.device:
+    """torch.device(device); a CUDA device without a GPU raises, so that
+    nothing runs on the CPU unless the caller asked for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' for the CPU")
+    return device
+
+
+def seeded_rngs(seed, channels: int, device):
+    """mbe_setThreadRngSeed (mbelib.c:173-181) per channel: seed [C] or a
+    scalar, uint32 values (a tensor, or anything numpy takes); 0 maps to
+    0x6D25357B. Returns (comfort_rng [3, C] i64, lcg_prime [C] f32) on
+    `device`: the Java Random seeded with it, the LCG prime seed % 53125."""
+    if isinstance(seed, torch.Tensor):
+        seed = seed.to(device=device, dtype=torch.int64) & 0xFFFFFFFF
+    else:
+        seed = torch.as_tensor(np.asarray(seed, np.int64) & 0xFFFFFFFF, device=device)
+    seed = torch.broadcast_to(seed, (channels,))
+    seed = torch.where(seed == 0, 0x6D25357B, seed)
+    return noise.java_random_init(seed), (seed % noise.LCG_M).to(torch.float32)
+
+
 def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
                device="cuda") -> ChannelState:
     """mbe_initMbeParms for a batch of channels (+ RNG state) on `device`.
@@ -132,9 +156,7 @@ def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
     device (device="cpu" runs the plain PyTorch path); without a GPU the
     default raises.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("init_state: no CUDA device; pass device='cpu' for CPU state")
+    device = checked_device(device)
     p = _default_parms(channels, device)
     if rng_seed is None:
         comfort = noise.java_random_init(torch.full(
@@ -142,12 +164,7 @@ def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
         lcg_prime = torch.full((channels,), noise.LCG_DEFAULT_SEED,
                                dtype=torch.float32, device=device)
     else:
-        seed = torch.as_tensor(np.asarray(rng_seed, np.int64) & 0xFFFFFFFF,
-                               device=device)
-        seed = torch.broadcast_to(seed, (channels,))
-        seed = torch.where(seed == 0, 0x6D25357B, seed)
-        comfort = noise.java_random_init(seed)
-        lcg_prime = (seed % noise.LCG_M).to(torch.float32)
+        comfort, lcg_prime = seeded_rngs(rng_seed, channels, device)
     return ChannelState(
         cur=p, prev=map_parms(torch.clone, p),
         enh=map_parms(torch.clone, p) if carry_enh else None,

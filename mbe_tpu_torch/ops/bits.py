@@ -3,7 +3,30 @@ mbe_tpu.ops.bits)."""
 
 from functools import lru_cache
 
+import numpy as np
 import torch
+
+STATUS_OK = 0
+STATUS_INVALID_ARGUMENT = -1
+STATUS_INVALID_BITS = -2
+
+
+def validate_bits_host(bits) -> int:
+    """Host-side strict 0/1 validation (mbe_result.h:18-29) of a numpy
+    array. Returns the status."""
+    arr = np.asarray(bits)
+    if arr.size == 0:
+        return STATUS_OK
+    return STATUS_OK if ((arr == 0) | (arr == 1)).all() else STATUS_INVALID_BITS
+
+
+def validate_soft_bits_host(bits) -> int:
+    """Host-side soft-bit validation: the bit field must lie in 0..1
+    (mbe_result.h:31-42). Returns the status."""
+    arr = np.asarray(bits)
+    if arr.size == 0:
+        return STATUS_OK
+    return STATUS_OK if ((arr >= 0) & (arr <= 1)).all() else STATUS_INVALID_BITS
 
 
 def bits_valid(bits):

@@ -110,6 +110,29 @@ def _unpack_lsb(word, n):
     return ((word[..., None] >> torch.arange(n, device=word.device)) & 1).to(torch.int32)
 
 
+def golay2312_hard(bits):
+    """Golay(23,12) hard decode of bit planes [..., 23] (LSB-first: parity
+    0..10, data 11..22) over the packed form. Returns (out_bits [..., 23],
+    errs [...]) int32: parity bits pass through uncorrected and errs counts
+    corrected data-bit errors (ecc.c:259-301)."""
+    word, errs = golay2312_hard_packed(_pack_lsb(bits))
+    out = torch.cat([bits[..., :11].to(torch.int32), _unpack_lsb(word >> 11, 12)], dim=-1)
+    return out, errs
+
+
+def check_golay_block(block):
+    """mbe_checkGolayBlock (ecc.c:221-251) on packed ints: the corrected
+    12-bit data word of the 23-bit codeword in each lane's low bits."""
+    return (golay2312_hard_packed(block.to(torch.int32) & 0x7FFFFF)[0] >> 11) & 0xFFF
+
+
+def hamming1511_hard(bits, variant7100=False):
+    """Hamming(15,11) hard decode of bit planes [..., 15] over the packed
+    form. Returns (out_bits [..., 15], errs [...]) int32."""
+    block, errs = hamming1511_hard_packed(_pack_lsb(bits), variant7100)
+    return _unpack_lsb(block, 15), errs
+
+
 def hard_index(bits, code):
     """Codeword index of the hard decode of blocks [..., n] under `code`
     ("golay", "hamstd" or "ham7100"): the codebooks are index-systematic,

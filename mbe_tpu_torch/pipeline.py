@@ -14,10 +14,8 @@ from .models import ambe, imbe
 from .models.state import ChannelState, map_state
 from .ops import bits as bit_ops
 from .ops import synth as synth_ops
+from .ops.bits import STATUS_INVALID_BITS, STATUS_OK  # noqa: F401  (the result's status)
 from .utils.config import DEFAULT as DEFAULT_CONFIG, DecoderConfig
-
-STATUS_OK = 0
-STATUS_INVALID_BITS = -2
 
 FLAG_SOFT_INPUT = 0x0001
 FLAG_C0_VALID = 0x0002
@@ -28,6 +26,13 @@ FLAG_REPEAT = 0x0040
 FLAG_MUTE = 0x0080
 
 CODECS = ("imbe7200", "imbe7100", "ambe2450", "ambe2400")
+FRAME_SHAPES = {
+    "imbe7200": (8, 23),
+    "imbe7100": (7, 24),
+    "ambe2450": (4, 24),
+    "ambe2400": (4, 24),
+}
+DBITS = {"imbe7200": 88, "imbe7100": 88, "ambe2450": 49, "ambe2400": 49}
 
 
 def _pack_flags(base, fsm):

@@ -1,6 +1,7 @@
 """The port on the card: the voiced, soft-decode and unvoiced kernels
-against their plain versions, and the golden vectors through the pipeline
-with the kernels in the loop.
+against their plain versions, the golden vectors through the pipeline and
+the public API with the kernels in the loop, checkpoints and the
+streaming decoder.
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -96,11 +97,12 @@ def test_voiced_kernel_rejects_bad_inputs(cuda_device):
         voiced.voiced_sums(*bad)
 
 
-def _golden_on_card(device, name, codec, soft):
-    """One golden vector through `step` on the card: parameter bits, error
-    counts and flags bit-exact, >= 60 dB per frame and lane and for the
-    int16 stream; B1 and B3 launched once per frame, B2 3 times per soft
-    IMBE frame and 2 times per soft AMBE frame."""
+def _golden_on_card(device, name, codec, soft, step=None):
+    """One golden vector through `step` (pipeline.step unless given:
+    step(frame, state, rel)) on the card: parameter bits, error counts and
+    flags bit-exact, >= 60 dB per frame and lane and for the int16 stream;
+    B1 and B3 launched once per frame, B2 3 times per soft IMBE frame and
+    2 times per soft AMBE frame."""
     vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
     state = st.init_state(C, rng_seed=vec["seeds"], device=device)
@@ -109,8 +111,9 @@ def _golden_on_card(device, name, codec, soft):
     before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
     pcm16 = []
     for t in range(T):
-        state, audio, res, d = pipeline.step(codec, frames[t], state,
-                                             None if rel is None else rel[t])
+        r = None if rel is None else rel[t]
+        state, audio, res, d = (step(frames[t], state, r) if step
+                                else pipeline.step(codec, frames[t], state, r))
         np.testing.assert_array_equal(d.cpu().numpy(), vec["dbits"][t])
         got = np.stack([res[k].cpu().numpy() for k in RES_KEYS], axis=1)
         np.testing.assert_array_equal(got, vec["res"][t])
@@ -235,3 +238,123 @@ def test_unvoiced_kernel_rejects_bad_inputs(cuda_device):
                           (5, torch.empty((64, 256), device=cuda_device).T, "contiguous")):
         with pytest.raises(ValueError, match=match):
             unvoiced.unvoiced_wola(*args[:i], bad, *args[i + 1:])
+
+
+# --- the public API, checkpoints and streaming on the card ---------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_api_framef_on_card(cuda_device, soft):
+    """process_imbe7200x4400_[soft_]framef over the golden on the card:
+    the same outputs and kernel launches as pipeline.step."""
+    from mbe_tpu_torch import api
+
+    def step(frame, state, rel):
+        if soft:
+            return api.process_imbe7200x4400_soft_framef(frame, rel, state)
+        return api.process_imbe7200x4400_framef(frame, state)
+
+    _golden_on_card(cuda_device, "e2e_imbe7200_soft" if soft else "e2e_imbe7200", "imbe7200",
+                    soft, step=step)
+
+
+@pytest.mark.cuda
+def test_api_dataf_on_card(cuda_device):
+    """process_imbe4400_dataf over fsm_imbe7200 on the card (no C0/C4
+    counts): flags exact, >= 60 dB per frame, B1 and B3 once per frame."""
+    from mbe_tpu_torch import api
+    vec = dict(np.load(VECTORS / "fsm_imbe7200.npz"))
+    T = vec["dbits"].shape[0]
+    state = api.init_mbe_parms(1, np.uint32(vec["seed"]), device=cuda_device)
+    before = (voiced.LAUNCHES, unvoiced.LAUNCHES)
+    for t in range(T):
+        audio, state, fsm = api.process_imbe4400_dataf(
+            torch.as_tensor(vec["dbits"][t][None], device=cuda_device), state,
+            torch.tensor([int(vec["totals"][t])], device=cuda_device))
+        flags = (api.PROCESS_FLAG_REPEAT * int(fsm["repeat"][0])
+                 | api.PROCESS_FLAG_MUTE * int(fsm["mute"][0]))
+        assert flags == int(vec["flags"][t]), t
+        assert _snr_db(vec["pcm"][t], audio[0].cpu().numpy()) >= 60.0, t
+    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1]) == (T, T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", pipeline.CODECS)
+def test_api_staged_equals_frame_decode_on_card(cuda_device, codec):
+    """ecc_c0 -> demodulate -> ecc_data equals decode_*_frame on the card,
+    hard and soft (B2 for every soft block), tolerance 0."""
+    from mbe_tpu_torch import api
+    name = {"imbe7200": "imbe7200x4400", "imbe7100": "imbe7100x4400",
+            "ambe2450": "ambe3600x2450", "ambe2400": "ambe3600x2400"}[codec]
+    rng = np.random.default_rng(17)
+    shape = (1000, *pipeline.FRAME_SHAPES[codec])
+    frame = torch.as_tensor(rng.integers(0, 2, shape), dtype=torch.int32, device=cuda_device)
+    for rel in (None, torch.as_tensor(rng.integers(0, 256, shape), dtype=torch.int32,
+                                      device=cuda_device)):
+        fr1, c0 = getattr(api, f"ecc_{name}_c0")(frame, rel)
+        out = getattr(api, f"ecc_{name}_data")(getattr(api, f"demodulate_{name}_data")(fr1), rel)
+        d = api.convert_imbe7100to7200(out[0]) if codec == "imbe7100" else out[0]
+        d_ref, res = getattr(api, f"decode_{name}_frame")(frame, rel)
+        assert torch.equal(d, d_ref) and torch.equal(c0, res["c0_errors"])
+        assert torch.equal(out[1], res["protected_errors"])
+        if len(out) == 3:
+            assert torch.equal(out[2], res["c4_errors"])
+
+
+@pytest.mark.cuda
+def test_checkpoint_resume_on_card(cuda_device, tmp_path):
+    """3 steps, save, load on the card, 3 steps == 6 uninterrupted steps,
+    PCM and state bit for bit."""
+    from mbe_tpu_torch import api
+    from mbe_tpu_torch.utils import checkpoint
+    vec = dict(np.load(VECTORS / "e2e_imbe7200.npz"))
+    frames = torch.as_tensor(vec["frames"][:6], device=cuda_device)
+
+    def run(state, lo, hi):
+        pcm = []
+        for t in range(lo, hi):
+            state, audio, _, _ = api.process_imbe7200x4400_framef(frames[t], state)
+            pcm.append(audio)
+        return state, pcm
+
+    c = frames.shape[1]
+    ref, pcm_ref = run(api.init_mbe_parms(c, vec["seeds"], device=cuda_device), 0, 6)
+    mid, pcm_a = run(api.init_mbe_parms(c, vec["seeds"], device=cuda_device), 0, 3)
+    checkpoint.save(tmp_path / "s.npz", mid)
+    loaded = checkpoint.load(tmp_path / "s.npz", device=cuda_device)
+    assert loaded.cur.Ml.is_cuda
+    fin, pcm_b = run(loaded, 3, 6)
+    assert all(torch.equal(a, b) for a, b in zip(pcm_ref, pcm_a + pcm_b))
+    ref_np, fin_np = st.state_to_numpy(ref), st.state_to_numpy(fin)
+    for part in ("cur", "prev", "enh"):
+        for k in st.PARMS_FIELDS:
+            np.testing.assert_array_equal(getattr(getattr(fin_np, part), k),
+                                          getattr(getattr(ref_np, part), k), err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unpack", ["device", "host"])
+def test_streaming_on_card(cuda_device, unpack):
+    """StreamingDecoder on the card (pinned buffers, async copies, one
+    event per tick) equals direct steps, tolerance 0, at depths 1 and 3."""
+    from mbe_tpu_torch.parallel.streaming import StreamingDecoder
+    C, T = 300, 7
+    rng = np.random.default_rng(9)
+    bits = rng.integers(0, 2, (T, C, 96)).astype(np.uint8)
+    seeds = np.arange(1, C + 1, dtype=np.uint32)
+    state = st.init_state(C, rng_seed=seeds, device=cuda_device)
+    want = []
+    for t in range(T):
+        state, audio, res, _ = pipeline.step(
+            "ambe2450", torch.as_tensor(bits[t].reshape(C, 4, 24), device=cuda_device), state)
+        want.append((synth.float_to_short(audio).cpu().numpy(), res["total_errors"].cpu().numpy()))
+    for depth in (1, 3):
+        dec = StreamingDecoder("ambe2450", C, rng_seed=seeds, depth=depth, unpack=unpack)
+        got = []
+        for t in range(T):
+            got.extend(dec.push(np.packbits(bits[t], axis=1)))
+        got.extend(dec.flush())
+        assert len(got) == T
+        for (pcm, res), (pcm_w, te_w) in zip(got, want):
+            np.testing.assert_array_equal(pcm, pcm_w)
+            np.testing.assert_array_equal(res["total_errors"], te_w)
