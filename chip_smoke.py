@@ -20,23 +20,35 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      and 32768 (an eighth of the lanes at w0 = 0, an eighth at L = 56):
      max |err| / max |ref| < 1e-4 on add and on the new previousUw, both
      timed;
-  4. the golden vectors through the port's pipeline on the card:
-     e2e_{imbe7200,imbe7100,ambe2450,ambe2400}, hard and soft (C=16,
-     T=40), by `step`, long_{imbe7200,imbe7100,ambe2450,ambe2400} (C=4,
-     T=200) by `run_sequence` — parameter bits, error counts and flags
-     bit-exact, >= 60 dB PCM SNR per frame and lane, >= 60 dB for the
-     int16 stream; voiced_sums and unvoiced_wola launched once per frame,
-     soft_decode 3 times per soft IMBE frame and 2 times per soft AMBE
-     frame;
-  5. the main paths at full width: C = 32768 channels of random frames
-     through `run_sequence` at T = 8 and T = 48, SCALE_REPS runs each:
-     imbe7200 hard and soft, ambe2450 hard and soft, ambe2400 hard (soft
-     input is random hard bits and reliabilities 0..255). ms per frame
-     step is the slope between the fastest runs of the two (it cancels
-     the fixed per-run cost). Each run's wall and process CPU seconds are
-     printed. Random frames are mostly error frames, but the step's work
-     does not depend on frame content: B2 searches every codeword, and
-     every FSM branch is computed and then selected lane by lane;
+  4. the golden vectors through the port's pipeline on the card, each
+     twice: e2e_{imbe7200,imbe7100,ambe2450,ambe2400}, hard and soft (C=16,
+     T=40), and long_{imbe7200,imbe7100,ambe2450,ambe2400} (C=4, T=200),
+     first by an eager loop over `step`, then graphed: the e2e goldens by
+     `CompiledStep` replays, the long ones by `run_sequence`. Parameter
+     bits, error counts and flags bit-exact, >= 60 dB PCM SNR per frame and
+     lane, >= 60 dB for the int16 stream; the graphed arm bit-exact against
+     the eager one (PCM, result words, parameter bits, every state leaf;
+     where a float is not, integers stay exact and the PCM is >= 60 dB per
+     frame against eager, printed); voiced_sums and unvoiced_wola launched
+     (or replayed) once per frame, soft_decode 3 times per soft IMBE frame
+     and 2 times per soft AMBE frame;
+  5. the main paths at full width: C = 32768 channels of random frames at
+     T = 8 and T = 48: imbe7200 hard and soft, ambe2450 hard and soft,
+     ambe2400 hard (soft input is random hard bits and reliabilities
+     0..255). Each path in two arms, in the order eager, graphed, graphed,
+     eager: eager is a Python loop over `step` (SCALE_REPS_EAGER runs per
+     T), graphed is `run_sequence`, which replays the compiled step
+     (SCALE_REPS runs per T). ms per frame step is the slope between the
+     fastest runs of the two T (it cancels the fixed per-run cost), with
+     frames/s and peak memory per arm; each run's wall and process CPU
+     seconds are printed. The graphed PCM and results equal the eager ones
+     at T = 8. A profiled window of each arm (utils.profiling.trace) gives
+     wall ms, device events, device busy ms and idle share per step and
+     the count of each kernel's symbol per step: 1 voiced_sums_kernel, 1
+     unvoiced_wola_kernel, 3 or 2 soft_decode_kernel on the soft paths.
+     Random frames are mostly error frames, but the step's work does not
+     depend on frame content: B2 searches every codeword, and every FSM
+     branch is computed and then selected lane by lane;
   6. the public API (mbe_tpu_torch.api) on the card: the eight
      process_*_framef and process_*_soft_framef entry points over the e2e
      goldens (as phase 4), process_imbe7200x4400_frame against
@@ -49,12 +61,24 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
   7. state and streaming: a C = 32768 imbe7200 snapshot after 4 steps
      (utils.checkpoint save, load on the card, 4 more steps) bit-exact
      against 8 uninterrupted steps, with the npz bytes and the save and
-     load seconds; StreamingDecoder("imbe7200", 32768, depth=2) over 8
-     ticks of packed bytes, unpacked on the device and on the host,
-     equal to direct steps, with wall ms per tick beside run_sequence's.
+     load seconds; StreamingDecoder("imbe7200", 32768, depth=2), whose
+     tick is a captured graph, over 8 ticks of packed bytes, unpacked on
+     the device and on the host, equal to direct steps, with wall ms per
+     tick beside run_sequence's;
+  8. sharding and device time: sharded_step and sharded_sequence on two
+     shards of cuda:0 (a CompiledStep and a stream each) for imbe7200 and
+     ambe2450 hard at C = 32768 against the unsharded compiled step
+     (integers exact, int16 PCM within 1 LSB with fewer than 1e-3 of
+     samples differing; whether the PCM is exactly equal is printed);
+     utils.profiling.device_time of a bf16 4096^3 matmul, between 1.0x and
+     4x its time at the 989 TFLOP/s peak, and of one graphed imbe7200 hard
+     step beside phase 5's slope.
 
 Every kernel launch counter is zeroed just before each path of phases
-4-7 and read just after it; each path asserts its B1, B2 and B3 counts.
+4-8 and read just after it; each path asserts its B1, B2 and B3 counts. A
+graph replay runs no Python: the compiled step adds its graph's launches
+of each kernel (the counts during its capture) to the counters on every
+replay, and phase 5's profiler traces count the kernels themselves.
 `bound_ms` in the kernels JSON is the least time the
 card could take for the function on this run's inputs: the larger of the
 bytes it must move over the memory rate and its operations of each type
@@ -87,6 +111,7 @@ SCALE_T = (8, 48)
 SOFT_R = (16, 33, 1000, 3 * SCALE_C)
 PLAIN_ROWS = 16384     # row chunk of the plain soft decode ([rows, 4096] tensors)
 SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of each
+SCALE_REPS_EAGER = 3   # runs per T of phase 5's eager arm (the graphed arm keeps 5)
 UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
 B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
@@ -371,10 +396,11 @@ def counts(kernels):
     return {k: m.LAUNCHES for k, m in kernels.items()}
 
 
-def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=False, step=None):
+def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
     """One golden vector through `step` (pipeline.step unless given:
-    step(frame, state, rel) -> (state, audio, res, dbits)) or
-    `run_sequence` on the card."""
+    step(frame, state, rel) -> (state, audio, res, dbits)), frame by frame,
+    eagerly on the card. Returns (pcm [T, C, 160], results dict of [T, C],
+    parameter bits [T, C, n] numpy, the final state)."""
     vec = dict(np.load(VECTORS / f"{name}.npz"))
     T, C = vec["frames"].shape[:2]
     state = init_state(C, rng_seed=vec["seeds"], device=device)
@@ -382,53 +408,150 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, sequence=Fa
     rel = torch.as_tensor(vec["rel"], device=device) if soft else None
     step = step or (lambda frame, st, r: pipeline.step(codec, frame, st, r))
     zero(kernels)
-    if sequence:
-        state, pcm, res = pipeline.run_sequence(codec, frames, state, rel)
-        dbits = None
-    else:
-        pcm, res, dbits = [], [], []
-        for t in range(T):
-            state, audio, r, d = step(frames[t], state, None if rel is None else rel[t])
-            pcm.append(audio)
-            res.append(r)
-            dbits.append(d.cpu().numpy())
-        pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
-                           np.stack(dbits))
+    pcm, res, dbits = [], [], []
+    for t in range(T):
+        state, audio, r, d = step(frames[t], state, None if rel is None else rel[t])
+        pcm.append(audio)
+        res.append(r)
+        dbits.append(d.cpu().numpy())
+    pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
+                       np.stack(dbits))
     launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
     assert launches == want, f"{name}: kernel launches {launches} in {T} frames, want {want}"
     check_outputs(name, vec, pcm, res, dbits)
+    return pcm, res, dbits, state
+
+
+def state_leaves(state):
+    from mbe_tpu_torch.utils.graphs import leaves
+    return leaves(state)
+
+
+def min_snr_db(ref, test):
+    """The worst per-row SNR (dB) of test [..., n] against ref, on the
+    device; silent rows as snr_db."""
+    ref = ref.double().reshape(-1, ref.shape[-1])
+    p_sig = (ref ** 2).mean(dim=1)
+    p_err = ((ref - test.double().reshape(ref.shape)) ** 2).mean(dim=1)
+    db = 10.0 * torch.log10(p_sig / p_err.clamp(min=1e-30))
+    silent = p_sig < 1e-12
+    db = torch.where(silent, torch.where(p_err < 1e-12, torch.inf, -torch.inf), db)
+    return db.min().item()
+
+
+def same_as_eager(name, got, eager):
+    """Graphed outputs (pcm, res, dbits or None, state) against the eager
+    loop's: (bit-exact, worst frame dB against eager). Integers (result
+    words, parameter bits, integer state leaves) must be exact; where the
+    float PCM or state is not, the PCM must be >= SNR_MIN_DB per frame and
+    lane against the eager PCM (the stated fallback)."""
+    pcm, res, dbits, state = got
+    e_pcm, e_res, e_dbits, e_state = eager
+    ints = all(torch.equal(res[k], e_res[k]) for k in e_res) and set(res) == set(e_res)
+    ints = ints and (dbits is None or np.array_equal(dbits, e_dbits))
+    pairs = list(zip(state_leaves(state), state_leaves(e_state)))
+    ints = ints and all(torch.equal(a, b) for a, b in pairs if not a.is_floating_point())
+    exact = (ints and torch.equal(pcm, e_pcm)
+             and all(torch.equal(a, b) for a, b in pairs if a.is_floating_point()))
+    worst = np.inf if exact else min_snr_db(e_pcm.float(), pcm.float())
+    assert ints, f"{name}: graphed integers differ from eager"
+    assert worst >= SNR_MIN_DB, f"{name}: graphed PCM {worst} dB against eager"
+    return exact, worst
+
+
+def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eager):
+    """The graphed arm of one golden: CompiledStep replays (e2e) or
+    run_sequence (long), against the eager loop's outputs (`eager`, from
+    golden) and the golden's own bar; launches per replay asserted."""
+    vec = dict(np.load(VECTORS / f"{name}.npz"))
+    T, C = vec["frames"].shape[:2]
+    frames = torch.as_tensor(vec["frames"], device=device)
+    rel = torch.as_tensor(vec["rel"], device=device) if soft else None
+
+    def init():
+        return init_state(C, rng_seed=vec["seeds"], device=device)
+
+    sequence = name.startswith("long")
+    if sequence:
+        pipeline.compiled_step(codec, init(), soft)  # the capture (and its warm-up) first
+        zero(kernels)
+        state, pcm, res = pipeline.run_sequence(codec, frames, init(), rel)
+        dbits = None
+    else:
+        compiled = pipeline.CompiledStep(codec, init(), soft=soft)
+        zero(kernels)
+        pcm, res, dbits = [], [], []
+        for t in range(T):
+            state, audio, r = compiled(frames[t], None if rel is None else rel[t])
+            pcm.append(audio.clone())
+            res.append({k: v.clone() for k, v in r.items()})
+            dbits.append(compiled.dbits.cpu().numpy())
+        pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
+                           np.stack(dbits))
+    launches = counts(kernels)
+    want = dict(voiced_sums=T, unvoiced_wola=T,
+                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
+    assert launches == want, f"{name} graphed: kernel launches {launches} in {T} replays"
+    exact, worst = same_as_eager(name, (pcm, res, dbits, state), eager)
+    print(f"golden {name} graphed ({'run_sequence' if sequence else 'CompiledStep'}): "
+          f"bit-exact against the eager loop {exact} (worst frame against eager "
+          f"{float(worst)!r} dB); kernel launches {launches} in {T} replays")
+    check_outputs(f"{name} graphed", vec, pcm, res, dbits)
 
 
 def phase_goldens(pipeline, init_state, kernels, device):
     for codec in ("imbe7200", "imbe7100", "ambe2450", "ambe2400"):
-        for soft in (False, True):
-            name = f"e2e_{codec}_soft" if soft else f"e2e_{codec}"
-            golden(pipeline, init_state, kernels, device, name, codec, soft)
-        golden(pipeline, init_state, kernels, device, f"long_{codec}", codec, False,
-               sequence=True)
+        names = [(f"e2e_{codec}", False), (f"e2e_{codec}_soft", True), (f"long_{codec}", False)]
+        for name, soft in names:
+            eager = golden(pipeline, init_state, kernels, device, name, codec, soft)
+            golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eager)
+    pipeline.clear_compiled()
 
 
-def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_REPS):
-    """One main path at C = SCALE_C: the slope between the fastest of
-    `reps` T = 8 and T = 48 runs, with every launch counter of `kernels`
-    ({name: module}) zeroed before it and read after it."""
+def scale_frames(pipeline, codec, soft, device, t_max=max(SCALE_T)):
+    """Random [t_max, SCALE_C, rows, cols] int8 frames and, when soft,
+    uint8 reliabilities, from SEED."""
     rng = np.random.default_rng(SEED)
-    t_max = max(SCALE_T)
     shape = (t_max, SCALE_C, *pipeline.FRAME_SHAPES[codec])
     frames = torch.as_tensor(rng.integers(0, 2, shape, dtype=np.int8), device=device)
     rel = (torch.as_tensor(rng.integers(0, 256, shape, dtype=np.uint8), device=device)
            if soft else None)
-    path = f"{codec} {'soft' if soft else 'hard'}"
+    return frames, rel
+
+
+def eager_sequence(pipeline, codec, frames, state, rel=None):
+    """The eager arm: a Python loop over pipeline.step, the PCM and
+    results stacked as run_sequence returns them."""
+    pcm, res = [], []
+    for t in range(frames.shape[0]):
+        state, audio, r, _ = pipeline.step(codec, frames[t], state,
+                                           None if rel is None else rel[t])
+        pcm.append(audio)
+        res.append(r)
+    return state, torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]}
+
+
+def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_REPS,
+                arm="graphed"):
+    """One main path at C = SCALE_C, one arm: "eager" (eager_sequence) or
+    "graphed" (run_sequence, which replays the compiled step; captured
+    before the counts). The slope between the fastest of `reps` T = 8 and
+    T = 48 runs, each ending in a readback of the PCM sum, with every
+    launch counter of `kernels` ({name: module}) zeroed before the runs and
+    read after them. Returns {launches, slope_ms, peak_gib}."""
+    frames, rel = scale_frames(pipeline, codec, soft, device)
+    path = f"{codec} {'soft' if soft else 'hard'} {arm}"
     ambe = codec.startswith("ambe")
+    seq = pipeline.run_sequence if arm == "graphed" else (
+        lambda c, f, st, r: eager_sequence(pipeline, c, f, st, r))
 
     def run(T):
         state = init_state(SCALE_C, carry_enh=ambe, device=device)
         torch.cuda.synchronize()
         t0, c0 = time.perf_counter(), time.process_time()
-        state, pcm, res = pipeline.run_sequence(codec, frames[:T], state,
-                                                None if rel is None else rel[:T])
+        state, pcm, res = seq(codec, frames[:T], state, None if rel is None else rel[:T])
         total = pcm.sum().item()  # consume the PCM; .item() synchronizes
         dt, cpu = time.perf_counter() - t0, time.process_time() - c0
         assert pcm.shape == (T, SCALE_C, 160)
@@ -436,7 +559,18 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
         assert bool((res["status"] == 0).all())
         return dt, cpu
 
+    if arm == "graphed":
+        pipeline.clear_compiled()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(device)
+    capture_s = None
+    if arm == "graphed":
+        state = init_state(SCALE_C, carry_enh=ambe, device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipeline.compiled_step(codec, state, soft)  # the warm-up step and the capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t0
     zero(kernels)
     run(2)  # warm-up: device tables, allocator
     times = {T: [] for T in SCALE_T}
@@ -452,15 +586,96 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
                     soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0)
     want = {k: per_step[k] * steps for k in kernels}
     assert launches == want, f"{path}: kernel launches {launches}, want {want}"
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
 
     dn = SCALE_T[1] - SCALE_T[0]
     slope = (min(times[SCALE_T[1]]) - min(times[SCALE_T[0]])) / dn
     print(f"scale {path} C={SCALE_C}: run wall seconds {times!r}, process CPU seconds {cpu!r}")
     print(f"scale {path} C={SCALE_C}: slope({SCALE_T[0]},{SCALE_T[1]}) {slope * 1e3!r} "
-          f"ms/frame-step, {SCALE_C / slope!r} frames/s, peak memory {peak / 2**30!r} GiB, "
-          f"kernel launches {launches} over {steps} steps [{card()}]")
-    return launches
+          f"ms/frame-step, {SCALE_C / slope!r} frames/s, peak memory {peak!r} GiB, "
+          f"kernel launches {launches} over {steps} steps"
+          f"{'' if capture_s is None else f', warm-up step and capture {capture_s!r} s'} "
+          f"[{card()}]")
+    return dict(launches=launches, slope_ms=slope * 1e3, peak_gib=peak)
+
+
+KERNEL_SYMBOLS = dict(voiced_sums="voiced_sums_kernel", soft_decode="soft_decode_kernel",
+                      unvoiced_wola="unvoiced_wola_kernel")
+PROFILE_STEPS = 4      # steps per profiled window in phase 5
+
+
+def profile_steps(run, n, logdir):
+    """`run(n)` (n steps, then a synchronize) once without the profiler for
+    the wall time, then under utils.profiling.trace: (wall ms per step,
+    device events per step, device busy ms per step, idle share, each
+    kernel's symbol count per step)."""
+    from torch.autograd import DeviceType
+    from mbe_tpu_torch.utils import profiling
+    run(1)
+    t0 = time.perf_counter()
+    run(n)
+    wall = (time.perf_counter() - t0) / n * 1e3
+    with profiling.trace(logdir) as prof:
+        run(n)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in events) / n / 1e3
+    symbols = {k: sum(sym in e.name for e in events) / n for k, sym in KERNEL_SYMBOLS.items()}
+    return wall, len(events) / n, busy, 1.0 - busy / wall, symbols
+
+
+def scale_path(pipeline, init_state, kernels, device, codec, soft):
+    """Phase 5 for one path: the eager and graphed arms in the order E G G
+    E (the eager arm at SCALE_REPS_EAGER runs per T), the graphed PCM and
+    results against the eager ones at T = 8, and a profiled window of each
+    arm with the kernels' symbols counted per step. Returns the last
+    graphed arm's launch counts."""
+    path = f"{codec} {'soft' if soft else 'hard'}"
+    arms = {}
+    for arm in ("eager", "graphed", "graphed", "eager"):
+        arms.setdefault(arm, []).append(phase_scale(
+            pipeline, init_state, kernels, device, codec, soft,
+            reps=SCALE_REPS if arm == "graphed" else SCALE_REPS_EAGER, arm=arm))
+
+    ambe = codec.startswith("ambe")
+    T = min(SCALE_T)
+    frames, rel = scale_frames(pipeline, codec, soft, device, t_max=T)
+    eager = eager_sequence(pipeline, codec, frames,
+                           init_state(SCALE_C, carry_enh=ambe, device=device), rel)
+    state, pcm, res = pipeline.run_sequence(
+        codec, frames, init_state(SCALE_C, carry_enh=ambe, device=device), rel)
+    exact, worst = same_as_eager(path, (pcm, res, None, state),
+                                 (eager[1], eager[2], None, eager[0]))
+
+    def eager_run(n):
+        st = init_state(SCALE_C, carry_enh=ambe, device=device)
+        for t in range(n):
+            st, *_ = pipeline.step(codec, frames[t % T], st, None if rel is None else rel[t % T])
+        torch.cuda.synchronize()
+
+    compiled = pipeline.compiled_step(codec, init_state(SCALE_C, carry_enh=ambe, device=device),
+                                      soft)
+
+    def graphed_run(n):
+        for t in range(n):
+            compiled(frames[t % T], None if rel is None else rel[t % T])
+        torch.cuda.synchronize()
+
+    per_step = dict(voiced_sums=1.0, unvoiced_wola=1.0,
+                    soft_decode=float(B2_PER_SOFT_STEP[codec]) if soft else 0.0)
+    for arm, run in (("eager", eager_run), ("graphed", graphed_run)):
+        wall, n_events, busy, idle, symbols = profile_steps(
+            run, PROFILE_STEPS, ROOT / "build" / "traces" / f"{codec}_{int(soft)}_{arm}")
+        print(f"profile {path} {arm} C={SCALE_C}: wall {wall!r} ms/step (no profiler), "
+              f"{n_events!r} device events/step, device busy {busy!r} ms/step, idle share "
+              f"{idle!r}; kernel symbols per step {symbols} [{card()}]")
+        assert symbols == per_step, f"{path} {arm}: kernels per step {symbols}, want {per_step}"
+    summary = {arm: dict(slope_ms=[r["slope_ms"] for r in runs],
+                         peak_gib=[r["peak_gib"] for r in runs]) for arm, runs in arms.items()}
+    print(f"scale {path} C={SCALE_C} summary (E G G E): {summary}; graphed == eager at "
+          f"T={T}: bit-exact {exact} (worst frame against eager {float(worst)!r} "
+          f"dB) [{card()}]")
+    return dict(launches=arms["graphed"][-1]["launches"],
+                graphed_slope_ms=[r["slope_ms"] for r in arms["graphed"]])
 
 API_NAME = {"imbe7200": "imbe7200x4400", "imbe7100": "imbe7100x4400",
             "ambe2450": "ambe3600x2450", "ambe2400": "ambe3600x2400"}
@@ -663,20 +878,24 @@ def phase_state(api, pipeline, checkpoint, streaming, kernels, device):
         got.extend(dec.flush())
         wall = time.perf_counter() - t0
         launches = counts(kernels)
-        assert launches == dict(voiced_sums=STREAM_TICKS, soft_decode=0,
-                                unvoiced_wola=STREAM_TICKS), launches
-        assert len(got) == STREAM_TICKS
+        # the ticks' replays and, on the card, the one eager warm-up step
+        # before the decoder captures its tick at the first push
+        steps = STREAM_TICKS + (device.type == "cuda")
+        assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
+        assert len(got) == STREAM_TICKS and len(dec._graphs) == (device.type == "cuda")
         for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
             np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {unpack} t={t}")
             for k in streaming._RES_KEYS:
                 np.testing.assert_array_equal(res[k], res_w[k], err_msg=f"streaming t={t} {k}")
         push_ms = np.diff([t0] + ticks) * 1e3
-        print(f"streaming imbe7200 C={SCALE_C} depth=2 unpack={unpack}: {STREAM_TICKS} ticks "
-              f"equal to direct steps; {wall / STREAM_TICKS * 1e3!r} wall ms per tick, "
+        print(f"streaming imbe7200 C={SCALE_C} depth=2 unpack={unpack} (graphed): {STREAM_TICKS} "
+              f"ticks equal to direct steps; {wall / STREAM_TICKS * 1e3!r} wall ms per tick "
+              f"(the first push captures), "
               f"{float(np.median(push_ms[3:]))!r} median ms per push after the first 3 (which "
               f"pin their buffers), push ms {push_ms.tolist()!r}, kernel launches {launches} "
               f"[{card()}]")
-    for _ in range(2):  # run_sequence over the same frames, PCM read back
+    pipeline.clear_compiled()
+    for _ in range(2):  # run_sequence over the same frames, PCM read back (the first captures)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, pcm, res = pipeline.run_sequence(
@@ -684,8 +903,121 @@ def phase_state(api, pipeline, checkpoint, streaming, kernels, device):
         pcm = pcm.cpu().numpy()
         wall = time.perf_counter() - t0
     np.testing.assert_array_equal(pcm, np.stack([p for p, _ in direct]))
-    print(f"run_sequence imbe7200 C={SCALE_C} T={STREAM_TICKS}, int16 PCM read back: "
+    print(f"run_sequence imbe7200 C={SCALE_C} T={STREAM_TICKS} (graphed), int16 PCM read back: "
           f"{wall / STREAM_TICKS * 1e3!r} wall ms per frame step [{card()}]")
+    pipeline.clear_compiled()
+
+
+SHARD_T = 8            # frames of the phase-8 sharded runs
+MATMUL_N = 4096        # phase 8: device_time of a bf16 [N, N] @ [N, N]
+
+
+def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, hard_slope_ms):
+    """Phase 8: sharded_step and sharded_sequence on two shards of cuda:0
+    (a CompiledStep and a stream each) against the unsharded compiled step
+    at C = SCALE_C; device_time of a bf16 matmul against the card's peak
+    and of one graphed imbe7200 hard step."""
+    mesh = sharding.channel_mesh(["cuda:0", "cuda:0"])
+    for codec in ("imbe7200", "ambe2450"):
+        ambe = codec.startswith("ambe")
+        frames, _ = scale_frames(pipeline, codec, False, device, t_max=SHARD_T)
+        seeds = np.arange(1, SCALE_C + 1, dtype=np.uint32)
+
+        def init():
+            return init_state(SCALE_C, rng_seed=seeds, carry_enh=ambe, device=device)
+
+        ref_state, ref_pcm, ref_res = pipeline.run_sequence(codec, frames, init())
+        steady = {"unsharded run_sequence": timed(
+            lambda: pipeline.run_sequence(codec, frames, init()))}
+        pipeline.clear_compiled()
+        runs = {}
+        zero(kernels)
+        step = sharding.sharded_step(codec, mesh)
+        shards = sharding.shard_state(init(), mesh)
+        pcm, res = [], []
+        for t in range(SHARD_T):
+            shards, audio, r = step(frames[t], shards)
+            pcm.append(audio)
+            res.append(r)
+        runs["sharded_step"] = (frozen(shards), torch.stack(pcm),
+                                {k: torch.stack([r[k] for r in res]) for k in res[0]},
+                                counts(kernels))
+
+        def step_again(shards=shards):
+            for t in range(SHARD_T):
+                shards, *_ = step(frames[t], shards)
+
+        steady["sharded_step"] = timed(step_again)
+        zero(kernels)
+        sequence = sharding.sharded_sequence(codec, mesh)
+        shards, pcm, res = sequence(frames, sharding.shard_state(init(), mesh))
+        runs["sharded_sequence"] = (frozen(shards), pcm, res, counts(kernels))
+        steady["sharded_sequence"] = timed(lambda: sequence(frames, shards))
+        for name, (shards, pcm, res, launches) in runs.items():
+            # per shard a replay per frame and, on the card, the one eager
+            # warm-up step before its capture
+            steps = len(mesh) * (SHARD_T + (device.type == "cuda"))
+            want = dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps)
+            assert launches == want, f"{name} {codec}: kernel launches {launches}, want {want}"
+            diff = (float_to_short_of(pcm).int() - float_to_short_of(ref_pcm).int()).abs()
+            ints = all(torch.equal(res[k], ref_res[k]) for k in ref_res)
+            full = [torch.cat(parts, dim=-1) for parts in zip(*shards)]
+            ints = ints and all(torch.equal(a, b) for a, b in zip(full, state_leaves(ref_state))
+                                if not a.is_floating_point())
+            print(f"{name} {codec} hard C={SCALE_C} on {len(mesh)} shards of cuda:0: integers "
+                  f"exact {ints}; PCM equal to the unsharded compiled step "
+                  f"{torch.equal(pcm, ref_pcm)}; int16 samples differing "
+                  f"{(diff > 0).float().mean().item()!r}, max {diff.max().item()} LSB; kernel "
+                  f"launches {launches} [{card()}]")
+            assert ints, f"{name} {codec}: integers differ from the unsharded step"
+            assert diff.max().item() <= 1 and (diff > 0).float().mean().item() < 1e-3
+        print(f"sharding {codec} hard C={SCALE_C}: wall ms per frame over {SHARD_T} frames once "
+              f"captured: {steady!r} [{card()}]")
+        del runs, shards, step, sequence
+        torch.cuda.empty_cache()
+
+    n = MATMUL_N
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    a = (torch.randn((n, n), device=device, generator=gen) / n ** 0.5).to(torch.bfloat16)
+    x = torch.randn((n, n), device=device, generator=gen).to(torch.bfloat16)
+    sec = profiling.device_time(lambda c: a @ c, x, iters=50, short_iters=10)
+    peak = 2 * n ** 3 / BF16_FLOP_S
+    print(f"device_time bf16 matmul {n}x{n}x{n}: {sec * 1e3!r} ms per iteration, "
+          f"{2 * n ** 3 / sec / 1e12!r} TFLOP/s, {sec / peak!r}x the {peak * 1e3!r} ms at "
+          f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s [{card()}]")
+    assert 1.0 <= sec / peak <= 4.0, f"matmul slope {sec / peak}x its peak time"
+
+    frames, _ = scale_frames(pipeline, "imbe7200", False, device, t_max=1)
+    zero(kernels)
+    sec = profiling.device_time(lambda st: pipeline.step("imbe7200", frames[0], st)[0],
+                                init_state(SCALE_C, carry_enh=False, device=device),
+                                iters=24, short_iters=4)
+    launches = counts(kernels)
+    assert launches["voiced_sums"] == launches["unvoiced_wola"] > 24
+    print(f"device_time one graphed imbe7200 hard step C={SCALE_C}: {sec * 1e3!r} ms per "
+          f"step, beside phase 5's graphed slope {hard_slope_ms!r} ms/frame-step (run_sequence: "
+          f"frame copy in, replay, PCM and results copied out) [{card()}]")
+
+
+def frozen(shards):
+    """Copies of each shard state's leaves (a donated state changes on the
+    next call)."""
+    return [[x.clone() for x in state_leaves(s)] for s in shards]
+
+
+def timed(fn):
+    """Wall ms per frame of fn() over SHARD_T frames, ended by a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / SHARD_T * 1e3
+
+
+def float_to_short_of(pcm):
+    from mbe_tpu_torch.ops.synth import float_to_short
+    return float_to_short(pcm)
 
 
 def main():
@@ -696,8 +1028,8 @@ def main():
     sys.path.insert(0, str(ROOT))
     from mbe_tpu_torch import api, pipeline
     from mbe_tpu_torch.models.state import init_state
-    from mbe_tpu_torch.parallel import streaming
-    from mbe_tpu_torch.utils import checkpoint
+    from mbe_tpu_torch.parallel import sharding, streaming
+    from mbe_tpu_torch.utils import checkpoint, profiling
     from mbe_tpu_torch.ops import ecc
     from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
 
@@ -721,23 +1053,26 @@ def main():
     paths = {}
     for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
                         ("ambe2450", True), ("ambe2400", False)):
-        paths[codec, soft] = phase_scale(pipeline, init_state, kernels, device, codec, soft)
+        paths[codec, soft] = scale_path(pipeline, init_state, kernels, device, codec, soft)
+    pipeline.clear_compiled()
     phase_api(api, pipeline, kernels, device)
     phase_state(api, pipeline, checkpoint, streaming, kernels, device)
+    phase_sharding(pipeline, sharding, profiling, init_state, kernels, device,
+                   paths["imbe7200", False]["graphed_slope_ms"])
 
     print(json.dumps({"kernels": [
         {"name": "voiced_sums", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/voiced.cu",
          "replaces": "mbe_tpu/ops/pallas/voiced.py:140",
-         "launches": paths["imbe7200", False]["voiced_sums"], **k_voiced},
+         "launches": paths["imbe7200", False]["launches"]["voiced_sums"], **k_voiced},
         {"name": "soft_decode", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/softecc.cu",
          "replaces": "mbe_tpu/ops/pallas/softecc.py:128",
-         "launches": paths["imbe7200", True]["soft_decode"], **k_soft},
+         "launches": paths["imbe7200", True]["launches"]["soft_decode"], **k_soft},
         {"name": "unvoiced_wola", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/unvoiced.cu",
          "replaces": "mbe_tpu/ops/pallas/unvoiced.py:174",
-         "launches": paths["ambe2450", False]["unvoiced_wola"], **k_unvoiced}]}))
+         "launches": paths["ambe2450", False]["launches"]["unvoiced_wola"], **k_unvoiced}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 constexpr int kN = 256;          // real transform length
@@ -368,6 +370,25 @@ unvoiced_wola_kernel(const float* __restrict__ w0, const int* __restrict__ L,
     new_uw[static_cast<size_t>(n) * C + c] = tile[(kUw + n) * kCB + lane];
 }
 
+// Per device: whether the kernel's dynamic shared-memory limit is raised there.
+constexpr int kMaxDevices = 64;
+std::atomic<bool> g_smem_raised[kMaxDevices];
+
+// Raises the kernel's shared-memory limit on the current device, once: later
+// calls only read the flag, so a launch inside a CUDA graph capture sets no
+// attribute (as softecc.cu's device_sms).
+cudaError_t raise_smem_limit() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (g_smem_raised[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(unvoiced_wola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kSmemBytes));
+  if (err == cudaSuccess) g_smem_raised[dev].store(true, std::memory_order_relaxed);
+  return err;
+}
+
 }  // namespace
 
 // Launches on `stream` (a cudaStream_t) and returns the first CUDA error of
@@ -378,9 +399,7 @@ extern "C" int mbe_unvoiced_wola(const float* w0, const int* L, const float* Ml,
                                  const float* denom, float* add, float* new_uw, int C,
                                  void* stream) {
   if (C <= 0) return static_cast<int>(cudaGetLastError());
-  const cudaError_t err = cudaFuncSetAttribute(
-      unvoiced_wola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(kSmemBytes));
+  const cudaError_t err = raise_smem_limit();
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((C + kCB - 1) / kCB);
   unvoiced_wola_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
@@ -391,8 +410,7 @@ extern "C" int mbe_unvoiced_wola(const float* w0, const int* L, const float* Ml,
 // Blocks of unvoiced_wola_kernel the runtime keeps resident per SM.
 extern "C" int mbe_unvoiced_wola_blocks_per_sm() {
   int n = 0;
-  if (cudaFuncSetAttribute(unvoiced_wola_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(kSmemBytes)) != cudaSuccess ||
+  if (raise_smem_limit() != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, unvoiced_wola_kernel, kThreads,
                                                     kSmemBytes) != cudaSuccess)
     return -1;

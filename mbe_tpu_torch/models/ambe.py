@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops import demod, ecc, noise, synth
-from ..ops.bits import field, lookup, pack_descending
+from ..ops.bits import field, lookup, pack_descending, powers_of_two
 from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
@@ -27,7 +27,6 @@ from .state import (MUTING_THRESHOLD_AMBE, Parms, ambe_default_parms_like,
 _RCONST = float(np.float32(1.0 / (2.0 * np.sqrt(2.0))))
 _UNVC = float(np.float32(0.2046))
 _RATE_COEFF = float(np.float32(0.001064))
-_POW2_24 = np.array([1 << i for i in range(24)], np.int64)
 
 
 # ---------------------------------------------------------------------------
@@ -61,8 +60,8 @@ def decode_ambe3600_frame(frame, soft_rel=None):
     """
     if soft_rel is not None:
         return _decode_ambe3600_frame_soft(frame.to(torch.int32), soft_rel.to(torch.int32))
-    pow2 = torch.as_tensor(_POW2_24, device=frame.device)
-    w = (frame.to(torch.int64) * pow2).sum(dim=-1).T.to(torch.int32)  # [4, C]
+    w = (frame.to(torch.int64) * powers_of_two(24, frame.device)).sum(dim=-1)
+    w = w.T.to(torch.int32)  # [4, C]
 
     # C0: Golay over fr[0][1..23]; Golay24 even-parity fix of fr[0][0]
     g_out, c0_errs = ecc.golay2312_hard_packed((w[0] >> 1) & 0x7FFFFF)

@@ -16,15 +16,12 @@ import numpy as np
 import torch
 
 from ..ops import demod, ecc, noise
-from ..ops.bits import lookup, pack_descending
+from ..ops.bits import lookup, pack_descending, powers_of_two
 from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
 from .speech import synthesize_speech_core
 from .state import MUTING_THRESHOLD_IMBE, Parms, imbe_headroom_reset, select_cases
-
-_POW2_23 = np.array([1 << i for i in range(23)], np.int64)
-_POW2_24 = np.array([1 << i for i in range(24)], np.int64)
 
 # 7200-layout imbe_d fields (base, length): C0 data, 3x Golay data, 3x
 # Hamming data, 7 raw bits (imbe7200x4400.c:469-515). The packed words
@@ -196,11 +193,15 @@ def _words_from_positions(bits):
                  for lo in (0, 32, 64))
 
 
+@lru_cache(maxsize=None)
+def _field_src(fields, device):
+    return torch.as_tensor(_field_positions(fields), device=device)
+
+
 def _pack_fields(imbe_d, fields):
     """[88, C] int bit planes -> the 3 field-forward packed words (int64)
-    of the given layout."""
-    src = torch.as_tensor(_field_positions(fields), device=imbe_d.device)
-    return _words_from_positions(imbe_d.to(torch.int64)[src])
+    of the given layout. The position tensor is cached per device."""
+    return _words_from_positions(imbe_d.to(torch.int64)[_field_src(fields, imbe_d.device)])
 
 
 def pack_imbe_words(imbe_d):
@@ -321,8 +322,7 @@ def decode_imbe7200_frame(frame, soft_rel=None):
     if soft_rel is not None:
         return _decode_imbe7200_frame_soft(frame.to(torch.int32), soft_rel.to(torch.int32))
     dev = frame.device
-    pow2 = torch.as_tensor(_POW2_23, device=dev)
-    w = (frame.to(torch.int64) * pow2).sum(dim=-1).T.to(torch.int32)  # [8, C]
+    w = (frame.to(torch.int64) * powers_of_two(23, dev)).sum(dim=-1).T.to(torch.int32)  # [8, C]
     c0w, c0_errs = ecc.golay2312_hard_packed(w[0])
 
     # demod PRNG seeded by C0 data bits 22..11 (imbe7200x4400.c:648-656)
@@ -464,8 +464,8 @@ def decode_imbe7100_frame(frame, soft_rel=None):
     """
     if soft_rel is not None:
         return _decode_imbe7100_frame_soft(frame.to(torch.int32), soft_rel.to(torch.int32))
-    pow2 = torch.as_tensor(_POW2_24, device=frame.device)
-    w = (frame.to(torch.int64) * pow2).sum(dim=-1).T.to(torch.int32)  # [7, C]
+    w = (frame.to(torch.int64) * powers_of_two(24, frame.device)).sum(dim=-1)
+    w = w.T.to(torch.int32)  # [7, C]
 
     # C0: short Golay, 18 data bits at fr[0][1..18] zero-padded to 23; the
     # corrected bits go back into fr[0][1..18]

@@ -43,12 +43,24 @@ def lookup(table, idx):
     return table[torch.clamp(idx, 0, table.shape[0] - 1).long()]
 
 
+@lru_cache(maxsize=None)
+def _pack_index(indices, device):
+    return (torch.as_tensor(indices, dtype=torch.long, device=device),
+            torch.arange(len(indices) - 1, -1, -1, device=device))
+
+
 def pack_msb_first(bits, indices):
     """mbe_bits_by_index_to_int (mbe_bitpack.h:11-19): MSB-first pack of
-    bits[..., indices] into int32."""
-    idx = torch.as_tensor(indices, dtype=torch.long, device=bits.device)
-    shifts = torch.arange(len(idx) - 1, -1, -1, device=bits.device)
+    bits[..., indices] into int32. The index tensors are cached per device."""
+    idx, shifts = _pack_index(tuple(indices), bits.device)
     return ((bits[..., idx].to(torch.int32) << shifts).sum(dim=-1)).to(torch.int32)
+
+
+@lru_cache(maxsize=None)
+def powers_of_two(n, device):
+    """[n] int64 weights 2^0 .. 2^(n-1) on `device` (an LSB-first pack of a
+    row of bit planes), built once per device."""
+    return torch.as_tensor([1 << i for i in range(n)], dtype=torch.int64, device=device)
 
 
 @lru_cache(maxsize=None)

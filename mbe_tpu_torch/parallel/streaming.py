@@ -6,14 +6,19 @@ bytes of PCM out. Packed uint8 frames go to the device as bytes and are
 expanded to bit planes there (int32 bit planes would be 32x the
 host-to-device bytes); `unpack="host"` expands them on the host instead.
 
-On a GPU the loop never waits for the step it just queued: each tick's
-input goes up by a non-blocking copy from a pinned host buffer, its PCM
-and result words come back as one bundle by a non-blocking copy into
-another pinned buffer, and a CUDA event marks that copy. The host waits on
-a tick's event only when it yields that tick, `depth` ticks later. The
-pinned buffers rotate over depth + 1 slots: a slot is written again only
-after the tick that last used it has been read back (its input copy and
-its step come before its readback on the one stream).
+On a GPU a tick is one CUDA graph (the port of the reference's
+`jax.jit(_step_packed, donate_argnums=(1,))`): the device unpack from a
+static [C, S] uint8 input (or the static int32 bit planes of host-unpack
+mode), the step over the static state, updated in place, float_to_short
+and the bundle, into a static bundle tensor. A tick is four operations on
+one stream: a non-blocking copy from a pinned host buffer into the static
+input, the replay, a non-blocking copy of the bundle into another pinned
+buffer, and a CUDA event. The copy out of tick t is queued before the
+replay of tick t + 1 overwrites the bundle. The host waits on a tick's
+event only when it yields that tick, `depth` ticks later. The pinned
+buffers rotate over depth + 1 slots: a slot is written again only after
+the tick that last used it has been read back (its input copy and its
+step come before its readback on the one stream).
 """
 
 import collections
@@ -24,6 +29,7 @@ import torch
 from .. import native, pipeline
 from ..models import state as state_mod
 from ..ops import synth as synth_ops
+from ..utils import graphs
 
 # Fixed key order for the bundled result block (see _bundle below).
 _RES_KEYS = ("c0_errors", "protected_errors", "c4_errors", "total_errors", "flags")
@@ -91,6 +97,7 @@ class StreamingDecoder:
         self._slots = [dict(inp=None, out=None) for _ in range(depth + 1)]
         self._tick = 0
         self._inflight = collections.deque()
+        self._graphs = {}  # (input shape, dtype) -> (static input, Captured)
 
     @staticmethod
     def _pinned(buf, like):
@@ -100,37 +107,50 @@ class StreamingDecoder:
             buf = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
         return buf
 
-    def _upload(self, arr: np.ndarray, slot):
-        host = torch.from_numpy(np.ascontiguousarray(arr))
-        if not self._cuda:
-            return host.to(self._device)
-        slot["inp"] = self._pinned(slot["inp"], host)
-        slot["inp"].copy_(host)
-        return slot["inp"].to(self._device, non_blocking=True)
+    def _body(self, inp, state):
+        """One tick on the device: the frame from `inp` ([C, S] uint8 packed
+        bytes, unpacked here, or [C, rows, cols] int32 bit planes), the step
+        with its new state copied into `state`, and the bundle."""
+        frame = (unpack_bits_device(inp, self.n_bits).reshape(self.channels, self.rows, self.cols)
+                 if inp.dtype == torch.uint8 else inp)
+        new_state, audio, res, _ = pipeline.step(self.codec, frame, state)
+        graphs.copy_into(graphs.leaves(state), graphs.leaves(new_state))
+        if self._int16:
+            audio = synth_ops.float_to_short(audio)
+        return _bundle(audio, res)
+
+    def _graph(self, host):
+        """The static input and captured tick for inputs like `host`,
+        captured at their first use."""
+        key = (tuple(host.shape), host.dtype)
+        if key not in self._graphs:
+            inp = torch.zeros(host.shape, dtype=host.dtype, device=self._device)
+            self._graphs[key] = inp, graphs.Captured(
+                lambda: self._body(inp, self._state), self._device,
+                warmup=lambda: self._body(inp, state_mod.map_state(torch.clone, self._state)))
+        return self._graphs[key]
 
     def _launch(self, packed_frames):
-        """Queue one tick: upload, step, bundle and start the readback."""
+        """Queue one tick: upload, replay (unpack, step, bundle) and start
+        the readback."""
         slot = self._slots[self._tick % len(self._slots)]
         self._tick += 1
         arr = np.asarray(packed_frames)
-        shape = (self.channels, self.rows, self.cols)
-        if arr.dtype == np.uint8 and arr.ndim == 2:
-            if self._unpack_mode == "device":
-                frame = unpack_bits_device(self._upload(arr, slot), self.n_bits).reshape(shape)
-            else:
-                bits = native.unpack_bits(arr.reshape(self.channels, -1), self.n_bits)
-                frame = self._upload(bits.reshape(shape), slot)
-        else:
-            frame = self._upload(np.asarray(arr, np.int32), slot)
-        self._state, audio, res, _ = pipeline.step(self.codec, frame, self._state)
-        if self._int16:
-            audio = synth_ops.float_to_short(audio)
-        bundle = _bundle(audio, res)
+        if arr.dtype == np.uint8 and arr.ndim == 2 and self._unpack_mode == "host":
+            arr = native.unpack_bits(arr.reshape(self.channels, -1), self.n_bits)
+        if not (arr.dtype == np.uint8 and arr.ndim == 2):
+            arr = np.asarray(arr, np.int32).reshape(self.channels, self.rows, self.cols)
+        host = torch.from_numpy(np.ascontiguousarray(arr))
         if not self._cuda:
-            self._inflight.append((None, bundle))
+            self._inflight.append((None, self._body(host.to(self._device), self._state)))
             return
-        slot["out"] = self._pinned(slot["out"], bundle)
-        slot["out"].copy_(bundle, non_blocking=True)
+        inp, graph = self._graph(host)
+        slot["inp"] = self._pinned(slot["inp"], host)
+        slot["inp"].copy_(host)
+        inp.copy_(slot["inp"], non_blocking=True)
+        graph.replay()
+        slot["out"] = self._pinned(slot["out"], graph.outputs)
+        slot["out"].copy_(graph.outputs, non_blocking=True)
         done = torch.cuda.Event()
         done.record(torch.cuda.current_stream(self._device))
         self._inflight.append((done, slot["out"]))

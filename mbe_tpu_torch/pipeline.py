@@ -6,12 +6,20 @@ AMBE 3600x2400, hard and soft input).
 state and returns (state', pcm [C, 160], result, parameter bits [C, nbits]);
 the device is the one the frames and state live on. Throughput comes from
 the channel axis; `run_sequence` loops over time.
+
+`CompiledStep` is the port of `jax.jit(step, donate_argnums=state)`: on the
+card, one step captured into a CUDA graph over static input and state
+buffers that each replay updates in place. `run_sequence` replays it once
+per frame (the counterpart of the reference's jitted `lax.scan`).
 """
+
+import collections
 
 import torch
 
 from .models import ambe, imbe
 from .models.state import ChannelState, map_state
+from .utils import graphs
 from .ops import bits as bit_ops
 from .ops import synth as synth_ops
 from .ops.bits import STATUS_INVALID_BITS, STATUS_OK  # noqa: F401  (the result's status)
@@ -135,19 +143,149 @@ def step_int16(codec: str, frame, state: ChannelState, soft_rel=None,
     return new_state, synth_ops.float_to_short(audio), res, d
 
 
+class CompiledStep:
+    """One `step` over static buffers: the port of `jax.jit(step,
+    donate_argnums=state)`.
+
+    CompiledStep(codec, state, soft, int16, config) takes ownership of
+    `state` (donation): its tensors become the static state, which every
+    call updates in place, and the caller does not use the object it
+    passed again. The static inputs are `frame` [C, rows, cols] int32 and,
+    when `soft`, `soft_rel` [C, rows, cols] int32.
+
+    A call `compiled(frame, soft_rel=None)` copies the frame (any integer
+    dtype: `copy_` converts) into the static input, runs the step and
+    returns (state, audio [C, 160], result dict of [C] int32): `state` is
+    the static state itself, and audio, the result words and `dbits` (the
+    parameter bits [C, nbits]) are static outputs that the next call
+    overwrites. A caller that keeps them copies them, as `run_sequence`
+    does. With `int16`, audio is float_to_short's.
+
+    On a CUDA state the step is captured once into a CUDA graph
+    (utils/graphs.py) after one eager warm-up step on a copy of the state,
+    and each call replays it. A failed capture raises. On a CPU state the
+    same body runs eagerly on the same static buffers.
+    """
+
+    def __init__(self, codec: str, state: ChannelState, soft: bool = False, int16: bool = False,
+                 config: DecoderConfig = DEFAULT_CONFIG):
+        if codec not in CODECS:
+            raise ValueError(f"unknown codec {codec!r}")
+        if codec.startswith("ambe") and state.enh is None:
+            raise ValueError("AMBE steps need a carried enh state; "
+                             "use init_state(carry_enh=True)")
+        self.codec, self.soft, self.int16, self.config = codec, soft, int16, config
+        self.state = state
+        self.device = state.lcg_prime.device
+        shape = (state.lcg_prime.shape[0], *FRAME_SHAPES[codec])
+        self.frame = torch.zeros(shape, dtype=torch.int32, device=self.device)
+        self.soft_rel = (torch.zeros(shape, dtype=torch.int32, device=self.device)
+                         if soft else None)
+        self._graph = None
+        if self.device.type == "cuda":
+            self._graph = graphs.Captured(
+                lambda: self._body(self.state), self.device,
+                warmup=lambda: self._body(map_state(torch.clone, self.state)))
+            self._out = self._graph.outputs
+
+    def _body(self, state):
+        """step on the static inputs, its new state copied into `state`:
+        (audio, result words [C, n] int32 in `res` key order, dict of
+        their columns, dbits)."""
+        new_state, audio, res, d = step(self.codec, self.frame, state, self.soft_rel,
+                                        self.config)
+        if self.int16:
+            audio = synth_ops.float_to_short(audio)
+        graphs.copy_into(graphs.leaves(state), graphs.leaves(new_state))
+        words = torch.stack([v.to(torch.int32) for v in res.values()], dim=1)
+        return audio, words, {k: words[:, i] for i, k in enumerate(res)}, d
+
+    def __call__(self, frame, soft_rel=None):
+        if (soft_rel is not None) != self.soft:
+            raise ValueError(f"this CompiledStep was built with soft={self.soft}")
+        for name, x in (("frame", frame), ("soft_rel", soft_rel)):
+            if x is not None and tuple(x.shape) != tuple(self.frame.shape):
+                raise ValueError(f"{name} must be {tuple(self.frame.shape)}, "
+                                 f"got {tuple(x.shape)}")
+        self.frame.copy_(frame)
+        if self.soft:
+            self.soft_rel.copy_(soft_rel)
+        if self._graph is None:
+            self._out = self._body(self.state)
+        else:
+            self._graph.replay()
+        audio, _, res, _ = self._out
+        return self.state, audio, res
+
+    @property
+    def words(self):
+        """The last call's result words [C, n] int32, columns in the
+        result dict's key order (static)."""
+        return self._out[1]
+
+    @property
+    def dbits(self):
+        """The last call's parameter bits [C, nbits] int32 (static)."""
+        return self._out[3]
+
+
+_COMPILED = collections.OrderedDict()
+_COMPILED_MAX = 4  # compiled steps kept for run_sequence, least recently used dropped
+
+
+def compiled_step(codec: str, state: ChannelState, soft: bool = False, int16: bool = False,
+                  config: DecoderConfig = DEFAULT_CONFIG) -> CompiledStep:
+    """The cached CompiledStep of (codec, soft, int16, C, config, device,
+    carry_enh), with `state` copied into its static state (the caller's
+    state is not donated). At most _COMPILED_MAX are kept."""
+    key = (codec, soft, int16, state.lcg_prime.shape[0], config, state.lcg_prime.device,
+           state.enh is not None)
+    compiled = _COMPILED.pop(key, None)
+    if compiled is None:
+        while len(_COMPILED) >= _COMPILED_MAX:
+            _COMPILED.popitem(last=False)
+        compiled = CompiledStep(codec, map_state(torch.clone, state), soft, int16, config)
+    else:
+        graphs.copy_into(graphs.leaves(compiled.state), graphs.leaves(state))
+    _COMPILED[key] = compiled
+    return compiled
+
+
+def clear_compiled():
+    """Drop every cached compiled step, and with it its graph's memory."""
+    _COMPILED.clear()
+
+
+def replay_sequence(compiled: CompiledStep, frames, soft_rel=None):
+    """compiled over frames [T, C, rows, cols] (and soft_rel [T, C, rows,
+    cols]) from its current state: (pcm [T, C, 160], results dict of
+    [T, C] int32). Per frame: the frame copied in, one replay, the PCM and
+    the result words copied out."""
+    T = frames.shape[0]
+    c = compiled.frame.shape[0]
+    pcm = torch.empty((T, c, 160), dtype=torch.int16 if compiled.int16 else torch.float32,
+                      device=compiled.device)
+    words, keys = None, None
+    for t in range(T):
+        _, audio, res = compiled(frames[t], None if soft_rel is None else soft_rel[t])
+        if words is None:
+            keys = tuple(res)
+            words = torch.empty((T, *compiled.words.shape), dtype=torch.int32,
+                                device=compiled.device)
+        pcm[t].copy_(audio)
+        words[t].copy_(compiled.words)
+    return pcm, {k: words[:, :, i].contiguous() for i, k in enumerate(keys)}
+
+
 def run_sequence(codec: str, frames, state: ChannelState, soft_rel=None,
                  int16=False, config: DecoderConfig = DEFAULT_CONFIG):
     """Run a [T, C, rows, cols] frame sequence through the decoder.
 
-    Returns (state', pcm [T, C, 160], results dict of [T, C] arrays).
+    Replays the compiled step (compiled_step: `state` is copied in, not
+    donated) once per frame. Returns (state', pcm [T, C, 160], results
+    dict of [T, C] arrays); state' is a copy that no later call touches.
     """
     int16 = int16 or config.int16_output
-    pcm, results = [], []
-    for t in range(frames.shape[0]):
-        state, audio, res, _ = step(
-            codec, frames[t], state,
-            None if soft_rel is None else soft_rel[t], config)
-        pcm.append(synth_ops.float_to_short(audio) if int16 else audio)
-        results.append(res)
-    return (state, torch.stack(pcm),
-            {k: torch.stack([r[k] for r in results]) for k in results[0]})
+    compiled = compiled_step(codec, state, soft_rel is not None, int16, config)
+    pcm, results = replay_sequence(compiled, frames, soft_rel)
+    return map_state(torch.clone, compiled.state), pcm, results

@@ -1,7 +1,8 @@
 """The port on the card: the voiced, soft-decode and unvoiced kernels
 against their plain versions, the golden vectors through the pipeline and
-the public API with the kernels in the loop, checkpoints and the
-streaming decoder.
+the public API with the kernels in the loop, checkpoints, the streaming
+decoder, the compiled step (a CUDA graph replay, bit-exact against the
+eager step), channel sharding and the profiling helpers.
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -335,8 +336,9 @@ def test_checkpoint_resume_on_card(cuda_device, tmp_path):
 @pytest.mark.cuda
 @pytest.mark.parametrize("unpack", ["device", "host"])
 def test_streaming_on_card(cuda_device, unpack):
-    """StreamingDecoder on the card (pinned buffers, async copies, one
-    event per tick) equals direct steps, tolerance 0, at depths 1 and 3."""
+    """StreamingDecoder on the card (a captured tick per input kind: unpack,
+    step, bundle; pinned buffers, async copies, one event per tick) equals
+    direct steps, tolerance 0, at depths 1 and 3."""
     from mbe_tpu_torch.parallel.streaming import StreamingDecoder
     C, T = 300, 7
     rng = np.random.default_rng(9)
@@ -354,7 +356,126 @@ def test_streaming_on_card(cuda_device, unpack):
         for t in range(T):
             got.extend(dec.push(np.packbits(bits[t], axis=1)))
         got.extend(dec.flush())
-        assert len(got) == T
+        assert len(got) == T and len(dec._graphs) == 1
         for (pcm, res), (pcm_w, te_w) in zip(got, want):
             np.testing.assert_array_equal(pcm, pcm_w)
             np.testing.assert_array_equal(res["total_errors"], te_w)
+
+
+# --- the compiled step, sharding and profiling on the card ---------------------
+
+GOLDENS = ([(f"e2e_{c}{'_soft' if soft else ''}", c, soft) for c in pipeline.CODECS
+            for soft in (False, True)] + [(f"long_{c}", c, False) for c in pipeline.CODECS])
+
+
+def _leaves(state):
+    from mbe_tpu_torch.utils import graphs
+    return graphs.leaves(state)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,codec,soft", GOLDENS, ids=[g[0] for g in GOLDENS])
+def test_graph_replay_bit_exact_on_card(cuda_device, name, codec, soft):
+    """The twelve goldens: CompiledStep replays (e2e) or run_sequence (long)
+    equal the eager pipeline.step loop on the card at tolerance 0 (PCM,
+    result words, parameter bits, every state leaf); each replay advances
+    the kernel counters by 1 (B1), 1 (B3) and 3 or 2 (B2, soft)."""
+    vec = dict(np.load(VECTORS / f"{name}.npz"))
+    T, C = vec["frames"].shape[:2]
+    frames = torch.as_tensor(vec["frames"], device=cuda_device)
+    rel = torch.as_tensor(vec["rel"], device=cuda_device) if soft else None
+
+    def init():
+        return st.init_state(C, rng_seed=vec["seeds"], carry_enh=codec.startswith("ambe"),
+                             device=cuda_device)
+
+    state, eager = init(), []
+    for t in range(T):
+        state, audio, res, d = pipeline.step(codec, frames[t], state,
+                                             None if rel is None else rel[t])
+        eager.append((audio, res, d))
+    per_step = (1, 1, (3 if codec.startswith("imbe") else 2) if soft else 0)
+    if name.startswith("long"):
+        pipeline.compiled_step(codec, init())  # capture before counting
+        before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
+        out, pcm, results = pipeline.run_sequence(codec, frames, init())
+        assert torch.equal(pcm, torch.stack([e[0] for e in eager]))
+        for k in results:
+            assert torch.equal(results[k], torch.stack([e[1][k] for e in eager])), k
+    else:
+        compiled = pipeline.CompiledStep(codec, init(), soft=soft)
+        before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
+        for t in range(T):
+            out, audio, res = compiled(frames[t], None if rel is None else rel[t])
+            assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
+                    softecc.LAUNCHES - before[2]) == tuple((t + 1) * n for n in per_step)
+            assert torch.equal(audio, eager[t][0]) and torch.equal(compiled.dbits, eager[t][2])
+            assert all(torch.equal(res[k], eager[t][1][k]) for k in res), t
+    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
+            softecc.LAUNCHES - before[2]) == tuple(T * n for n in per_step)
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(out), _leaves(state)))
+
+
+@pytest.mark.cuda
+def test_sharded_step_two_shards_on_card(cuda_device):
+    """sharded_step and sharded_sequence on ["cuda:0", "cuda:0"] (two
+    CompiledSteps, a stream each) against the unsharded compiled step:
+    integers exact; int16 PCM within 1 LSB with fewer than 1e-3 of samples
+    differing (tests/test_sharding.py's rule)."""
+    from mbe_tpu_torch.parallel import sharding
+    C, T = 1000, 6
+    rng = np.random.default_rng(11)
+    frames = torch.as_tensor(rng.integers(0, 2, (T, C, 4, 24)), dtype=torch.int32,
+                             device=cuda_device)
+    seeds = np.arange(1, C + 1, dtype=np.uint32)
+    _, ref_pcm, ref_res = pipeline.run_sequence(
+        "ambe2450", frames, st.init_state(C, rng_seed=seeds, device=cuda_device))
+    mesh = sharding.channel_mesh(["cuda:0", "cuda:0"])
+    step = sharding.sharded_step("ambe2450", mesh)
+    shards = sharding.shard_state(st.init_state(C, rng_seed=seeds, device=cuda_device), mesh)
+    pcm, res = [], []
+    for t in range(T):
+        shards, audio, r = step(frames[t], shards)
+        pcm.append(audio.clone())
+        res.append({k: v.clone() for k, v in r.items()})
+    seq_shards = sharding.shard_state(st.init_state(C, rng_seed=seeds, device=cuda_device), mesh)
+    _, seq_pcm, seq_res = sharding.sharded_sequence("ambe2450", mesh)(frames, seq_shards)
+    for got, got_res in ((torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]}),
+                         (seq_pcm, seq_res)):
+        diff = (synth.float_to_short(got).int() - synth.float_to_short(ref_pcm).int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).float().mean().item() < 1e-3
+        for k in ref_res:
+            assert torch.equal(got_res[k], ref_res[k]), k
+
+
+@pytest.mark.cuda
+def test_device_time_matmul_against_peak(cuda_device):
+    """device_time (a graph of the body, replayed) of a bf16 4096 x 4096
+    matmul: 137.4 GFLOP, 0.139 ms at the 989 TFLOP/s peak; the slope lies
+    between 1.0x and 4x that (the reference's own check of its method)."""
+    from mbe_tpu_torch.utils import profiling
+    n = 4096
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    a = (torch.randn((n, n), device=cuda_device, generator=gen) / n ** 0.5).to(torch.bfloat16)
+    x = torch.randn((n, n), device=cuda_device, generator=gen).to(torch.bfloat16)
+    sec = profiling.device_time(lambda c: a @ c, x, iters=50, short_iters=10)
+    peak = 2 * n ** 3 / 989e12
+    assert 1.0 <= sec / peak <= 4.0, (sec, peak)
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_a_host_built_tensor(cuda_device, monkeypatch):
+    """A step that uploads host data (the per-call constant that repair 0
+    removed, put back) cannot be captured: CompiledStep raises, it does not
+    fall back to eager execution. Last in the file: the failed capture is
+    the last thing it asks of the card."""
+    from mbe_tpu_torch.models import imbe
+    from mbe_tpu_torch.ops import bits
+
+    def uncached(n, device):
+        return torch.as_tensor(np.array([1 << i for i in range(n)], np.int64), device=device)
+
+    monkeypatch.setattr(imbe, "powers_of_two", uncached)
+    with pytest.raises(RuntimeError):
+        pipeline.CompiledStep("imbe7200", st.init_state(64, device=cuda_device))
+    assert bits.powers_of_two(23, cuda_device).is_cuda

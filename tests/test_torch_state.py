@@ -136,6 +136,8 @@ def test_port_imports_neither_jax_nor_mbe_tpu():
     runs on a card machine with no jax), imports jax or mbe_tpu."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15
+    scanned = {str(f.relative_to(PKG)) for f in files}
+    assert {"parallel/sharding.py", "utils/profiling.py", "utils/graphs.py"} <= scanned
     smoke = PKG.parent / "chip_smoke.py"
     assert smoke.is_file()
     for path in files + [smoke]:

@@ -1,16 +1,24 @@
 #!/usr/bin/env python3
-"""Per-layer profile of the PyTorch port's step on one NVIDIA GPU.
+"""Per-layer profile of the PyTorch port's step on one NVIDIA GPU, eager
+and graphed.
 
     python3 tools/profile_torch_step.py [--channels 32768] [--steps 4]
         [--codec imbe7200|ambe2450|ambe2400] [--soft]
 
-Wraps each layer of one codec's step (hard, or with --soft random
-reliabilities 0..255) in a torch.profiler `record_function` range and
-prints, per step: the wall time without the profiler, the device kernel
-count, device busy time and idle share, then host and device ms per
-layer. Kernels launched outside a torch op (voiced_sums, soft_decode and
-unvoiced_wola, through ctypes) count in the step's device time but not in
-their layer's range.
+Eager arm: wraps each layer of one codec's step (hard, or with --soft
+random reliabilities 0..255) in a torch.profiler `record_function` range
+and prints, per step: the wall time without the profiler, the device
+kernel count, device busy time and idle share, then host and device ms
+per layer. Kernels launched outside a torch op (voiced_sums, soft_decode
+and unvoiced_wola, through ctypes) count in the step's device time but not
+in their layer's range.
+
+Graphed arm: the same step as `pipeline.CompiledStep` replays (a CUDA
+graph runs no Python, so it has no layer ranges): wall, device events,
+busy ms and idle share per replay, the kernels with the most device time,
+and `utils.profiling.device_time` of the graphed step (the slope of
+replays ended by a readback). Both arms are traced by
+`utils.profiling.trace` into build/traces/.
 """
 
 import argparse
@@ -23,12 +31,15 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile, record_function
+from torch.profiler import record_function
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from mbe_tpu_torch import pipeline  # noqa: E402
 from mbe_tpu_torch.models import ambe, imbe, speech  # noqa: E402
 from mbe_tpu_torch.models.state import init_state  # noqa: E402
+from mbe_tpu_torch.utils import profiling  # noqa: E402
+
+TRACES = Path(__file__).resolve().parent.parent / "build" / "traces"
 
 FRAME_SHAPE = {"imbe7200": (8, 23), "ambe2450": (4, 24), "ambe2400": (4, 24)}
 CORE = [
@@ -104,18 +115,19 @@ def main():
         torch.cuda.synchronize()
 
     run(0, 2)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profiling.trace(TRACES):
         run(2, 2 + n)  # the profiler's first window pays its own start-up
     t0 = time.perf_counter()
     run(2 + n, 2 + 2 * n)
     wall_ms = (time.perf_counter() - t0) / n * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(TRACES) as prof:
         run(2 + 2 * n, 2 + 3 * n)
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
                and e.name not in {"step"} | {tag for _, _, tag in tags}]
     busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / n / 1e3
-    print(f"{args.codec} C={c} {'soft' if args.soft else 'hard'}: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
+    path = f"{args.codec} C={c} {'soft' if args.soft else 'hard'}"
+    print(f"{path} eager: wall {wall_ms:.3f} ms/step (no profiler); {len(kernels) / n:.0f} "
           f"kernels/step; device busy {busy_ms:.3f} ms/step; idle share "
           f"{1 - busy_ms / wall_ms:.3f}")
     for e in prof.key_averages():
@@ -123,6 +135,37 @@ def main():
             if e.cpu_time_total > 0:
                 print(f"{e.key:28s} host {e.cpu_time_total / n / 1e3:8.3f} ms/step "
                       f"(profiled), device {e.device_time_total / n / 1e3:8.3f} ms/step")
+
+    # graphed arm: the same step as CompiledStep replays
+    compiled = pipeline.CompiledStep(args.codec, init_state(
+        c, carry_enh=args.codec.startswith("ambe"), device=dev), soft=args.soft)
+
+    def replay(t0, t1):
+        for t in range(t0, t1):
+            compiled(frames[t], None if rel is None else rel[t])
+        torch.cuda.synchronize()
+
+    replay(0, 2)
+    t0 = time.perf_counter()
+    replay(2, 2 + n)
+    g_wall = (time.perf_counter() - t0) / n * 1e3
+    with profiling.trace(TRACES) as prof:
+        replay(2 + n, 2 + 2 * n)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    g_busy = sum(e.time_range.elapsed_us() for e in events) / n / 1e3
+    print(f"{path} graphed: wall {g_wall:.3f} ms/replay (no profiler); {len(events) / n:.0f} "
+          f"device events/replay; device busy {g_busy:.3f} ms/replay; idle share "
+          f"{1 - g_busy / g_wall:.3f}")
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / n / 1e3
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        print(f"  {ms:8.4f} ms/replay  {name[:90]}")
+    frame, r0 = frames[0], None if rel is None else rel[0]
+    sec = profiling.device_time(lambda st: pipeline.step(args.codec, frame, st, r0)[0],
+                                init_state(c, carry_enh=args.codec.startswith("ambe"),
+                                           device=dev), iters=24, short_iters=4)
+    print(f"{path} graphed: device_time {sec * 1e3:.4f} ms/step (slope of replays)")
     return 0
 
 

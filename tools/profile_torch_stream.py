@@ -6,16 +6,18 @@
 
 Random packed frames (numpy.random.default_rng(0)). Prints, each over
 `--ticks` ticks after a warm-up of depth + 1 ticks:
-  1. wall ms per tick of StreamingDecoder.push (device unpack), of a loop
-     of pipeline.step + float_to_short with the PCM read back every tick,
-     and of run_sequence(int16=True) with the PCM read back at the end,
-     in the order stream, loop, sequence, sequence, loop, stream;
-  2. per tick, the host ms of the decoder's launch (upload, unpack, step,
-     bundle, the non-blocking readback and its event) and of its collect
-     (the wait on the event, the copy out of the pinned buffer);
-  3. a torch.profiler table of the streaming ticks and of the step loop:
-     the host calls with the most self CPU time, the device events (kernels
-     and copies), busy ms and idle share per tick.
+  1. wall ms per tick of StreamingDecoder.push (device unpack; a captured
+     tick replayed), of an eager loop of pipeline.step + float_to_short
+     and of a graphed loop of CompiledStep(int16=True) replays, each with
+     the PCM read back every tick, and of run_sequence(int16=True) (graphed)
+     with the PCM read back at the end, in the order stream, loop,
+     graphed loop, sequence, sequence, graphed loop, loop, stream;
+  2. per tick, the host ms of the decoder's launch (upload, replay, the
+     non-blocking readback and its event) and of its collect (the wait on
+     the event, the copy out of the pinned buffer);
+  3. a utils.profiling.trace table of the streaming ticks and of both
+     loops: the host calls with the most self CPU time, the device events
+     (kernels and copies), busy ms and idle share per tick.
 """
 
 import argparse
@@ -27,7 +29,6 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from mbe_tpu_torch import pipeline  # noqa: E402
@@ -35,6 +36,9 @@ from mbe_tpu_torch.models.state import init_state  # noqa: E402
 from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced  # noqa: E402
 from mbe_tpu_torch.ops.synth import float_to_short  # noqa: E402
 from mbe_tpu_torch.parallel.streaming import StreamingDecoder  # noqa: E402
+from mbe_tpu_torch.utils import profiling  # noqa: E402
+
+TRACES = Path(__file__).resolve().parent.parent / "build" / "traces"
 
 
 def card():
@@ -97,6 +101,17 @@ def main():
             float_to_short(audio).cpu()
         return (time.perf_counter() - t0) / n * 1e3
 
+    def graphed_loop():
+        compiled = pipeline.CompiledStep(args.codec, init_state(c, rng_seed=seeds), int16=True)
+        for t in range(warm):
+            compiled(frames[t])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(warm, warm + n):
+            _, audio, _ = compiled(frames[t])
+            audio.cpu()
+        return (time.perf_counter() - t0) / n * 1e3
+
     def sequence():
         state = init_state(c, rng_seed=seeds)
         state, _, _ = pipeline.run_sequence(args.codec, frames[:warm], state)
@@ -106,9 +121,11 @@ def main():
         pcm.cpu()
         return (time.perf_counter() - t0) / n * 1e3
 
-    walls = {"stream": [], "loop": [], "sequence": []}
-    for name in ("stream", "loop", "sequence", "sequence", "loop", "stream"):
-        walls[name].append({"stream": stream, "loop": loop, "sequence": sequence}[name]())
+    arms = {"stream": stream, "loop": loop, "graphed_loop": graphed_loop, "sequence": sequence}
+    walls = {name: [] for name in arms}
+    for name in ("stream", "loop", "graphed_loop", "sequence", "sequence", "graphed_loop", "loop",
+                 "stream"):
+        walls[name].append(arms[name]())
     print(f"wall ms per tick: {walls!r}")
 
     # host ms of the decoder's launch and collect, tick by tick
@@ -128,11 +145,12 @@ def main():
     list(dec.flush())
     print(f"host ms per tick: launch {launch!r}; collect {collect!r}")
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    with profiling.trace(TRACES):
         loop()  # the profiler's first window pays its own start-up
-    for name, fn in (("stream", stream), ("loop", loop)):
+    for name in ("stream", "loop", "graphed_loop"):
+        fn = arms[name]
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.trace(TRACES) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
