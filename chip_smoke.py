@@ -33,16 +33,19 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      (or replayed) once per frame, soft_decode 3 times per soft IMBE frame
      and 2 times per soft AMBE frame;
   5. the main paths at full width: C = 32768 channels of random frames at
-     T = 8 and T = 48: imbe7200 hard and soft, ambe2450 hard and soft,
-     ambe2400 hard (soft input is random hard bits and reliabilities
-     0..255). Each path in two arms, in the order eager, graphed, graphed,
+     T = 8 and T = 48, all eight configurations of bench.py: imbe7200 hard
+     and soft, ambe2450 hard and soft, ambe2400 hard (soft input is random
+     hard bits and reliabilities 0..255), each path in two arms, and
+     imbe7100 hard and soft and ambe2400 soft in the graphed arm alone.
+     The two arms run in the order eager, graphed, graphed,
      eager: eager is a Python loop over `step` (SCALE_REPS_EAGER runs per
      T), graphed is `run_sequence`, which replays the compiled step
      (SCALE_REPS runs per T). ms per frame step is the slope between the
      fastest runs of the two T (it cancels the fixed per-run cost), with
      frames/s and peak memory per arm; each run's wall and process CPU
-     seconds are printed. The graphed PCM and results equal the eager ones
-     at T = 8. A profiled window of each arm (utils.profiling.trace) gives
+     seconds are printed. The graphed PCM, results and state equal the
+     eager ones at T = 8, bit for bit, on all eight paths. A profiled
+     window of each arm of the first five (utils.profiling.trace) gives
      wall ms, device events, device busy ms and idle share per step and
      the count of each kernel's symbol per step: 1 voiced_sums_kernel, 1
      unvoiced_wola_kernel, 3 or 2 soft_decode_kernel on the soft paths.
@@ -61,10 +64,12 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
   7. state and streaming: a C = 32768 imbe7200 snapshot after 4 steps
      (utils.checkpoint save, load on the card, 4 more steps) bit-exact
      against 8 uninterrupted steps, with the npz bytes and the save and
-     load seconds; StreamingDecoder("imbe7200", 32768, depth=2), whose
-     tick is a captured graph, over 8 ticks of packed bytes, unpacked on
-     the device and on the host, equal to direct steps, with wall ms per
-     tick beside run_sequence's;
+     load seconds; StreamingDecoder(codec, 32768, depth=2), whose tick is
+     a captured graph, over 8 ticks of packed bytes for each of the four
+     codecs, unpacked on the device (and for imbe7200 on the host too,
+     through the C shim native/mbe_host.c, whose unpack is timed beside
+     its numpy form), equal to direct steps, with wall ms per tick beside
+     run_sequence's;
   8. sharding and device time: sharded_step and sharded_sequence on two
      shards of cuda:0 (a CompiledStep and a stream each) for imbe7200 and
      ambe2450 hard at C = 32768 against the unsharded compiled step
@@ -72,11 +77,17 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      samples differing; whether the PCM is exactly equal is printed);
      utils.profiling.device_time of a bf16 4096^3 matmul, between 1.0x and
      4x its time at the 989 TFLOP/s peak, and of one graphed imbe7200 hard
-     step beside phase 5's slope.
+     step beside phase 5's slope;
+  9. multiple processes: tools/multihost_smoke_torch.py as a subprocess,
+     two torch.distributed (gloo) processes of 16384 ambe2450 channels
+     each on cuda:0, each checked exactly against one unsharded process
+     (its launches asserted), with each worker's ms per frame step while
+     both run and the aggregate frames/s. Each phase's seconds and the
+     total are printed.
 
 Every kernel launch counter is zeroed just before each path of phases
-4-8 and read just after it; each path asserts its B1, B2 and B3 counts. A
-graph replay runs no Python: the compiled step adds its graph's launches
+4-9 and read just after it (phase 9's in its worker processes); each
+path asserts its B1, B2 and B3 counts. A graph replay runs no Python: the compiled step adds its graph's launches
 of each kernel (the counts during its capture) to the counters on every
 replay, and phase 5's profiler traces count the kernels themselves.
 `bound_ms` in the kernels JSON is the least time the
@@ -638,13 +649,7 @@ def scale_path(pipeline, init_state, kernels, device, codec, soft):
 
     ambe = codec.startswith("ambe")
     T = min(SCALE_T)
-    frames, rel = scale_frames(pipeline, codec, soft, device, t_max=T)
-    eager = eager_sequence(pipeline, codec, frames,
-                           init_state(SCALE_C, carry_enh=ambe, device=device), rel)
-    state, pcm, res = pipeline.run_sequence(
-        codec, frames, init_state(SCALE_C, carry_enh=ambe, device=device), rel)
-    exact, worst = same_as_eager(path, (pcm, res, None, state),
-                                 (eager[1], eager[2], None, eager[0]))
+    frames, rel = graphed_equals_eager(pipeline, init_state, device, codec, soft)
 
     def eager_run(n):
         st = init_state(SCALE_C, carry_enh=ambe, device=device)
@@ -671,11 +676,39 @@ def scale_path(pipeline, init_state, kernels, device, codec, soft):
         assert symbols == per_step, f"{path} {arm}: kernels per step {symbols}, want {per_step}"
     summary = {arm: dict(slope_ms=[r["slope_ms"] for r in runs],
                          peak_gib=[r["peak_gib"] for r in runs]) for arm, runs in arms.items()}
-    print(f"scale {path} C={SCALE_C} summary (E G G E): {summary}; graphed == eager at "
-          f"T={T}: bit-exact {exact} (worst frame against eager {float(worst)!r} "
-          f"dB) [{card()}]")
+    print(f"scale {path} C={SCALE_C} summary (E G G E): {summary} [{card()}]")
     return dict(launches=arms["graphed"][-1]["launches"],
                 graphed_slope_ms=[r["slope_ms"] for r in arms["graphed"]])
+
+
+def graphed_equals_eager(pipeline, init_state, device, codec, soft):
+    """One eager T = 8 run (eager_sequence) and run_sequence over the same
+    C = SCALE_C frames: PCM, result words and every state leaf bit-exact.
+    Returns the frames and reliabilities."""
+    path = f"{codec} {'soft' if soft else 'hard'}"
+    ambe = codec.startswith("ambe")
+    T = min(SCALE_T)
+    frames, rel = scale_frames(pipeline, codec, soft, device, t_max=T)
+    eager = eager_sequence(pipeline, codec, frames,
+                           init_state(SCALE_C, carry_enh=ambe, device=device), rel)
+    state, pcm, res = pipeline.run_sequence(
+        codec, frames, init_state(SCALE_C, carry_enh=ambe, device=device), rel)
+    exact, worst = same_as_eager(path, (pcm, res, None, state),
+                                 (eager[1], eager[2], None, eager[0]))
+    print(f"scale {path} C={SCALE_C}: graphed == eager at T={T}: bit-exact {exact} (worst "
+          f"frame against eager {float(worst)!r} dB) [{card()}]")
+    assert exact, f"{path}: graphed run_sequence is not bit-exact against the eager loop"
+    return frames, rel
+
+
+def scale_graphed_path(pipeline, init_state, kernels, device, codec, soft):
+    """Phase 5 for imbe7100 hard and soft and ambe2400 soft: the graphed
+    arm alone (phase_scale, SCALE_REPS runs per T, launches per replay
+    asserted) and graphed_equals_eager."""
+    out = phase_scale(pipeline, init_state, kernels, device, codec, soft)
+    graphed_equals_eager(pipeline, init_state, device, codec, soft)
+    pipeline.clear_compiled()
+    return out
 
 API_NAME = {"imbe7200": "imbe7200x4400", "imbe7100": "imbe7100x4400",
             "ambe2450": "ambe3600x2450", "ambe2400": "ambe3600x2400"}
@@ -805,7 +838,62 @@ def phase_api(api, pipeline, kernels, device):
           f"host validation of the numpy frame {t_check!r} ms [{card()}]")
 
 
-def phase_state(api, pipeline, checkpoint, streaming, kernels, device):
+def stream_ticks(streaming, kernels, device, codec, packed, direct, seeds, unpack):
+    """StreamingDecoder(codec, SCALE_C, depth=2, unpack) over the packed
+    ticks, equal to the direct steps' (int16 PCM, result dict) and with
+    its launches asserted; returns each push's ms."""
+    dec = streaming.StreamingDecoder(codec, SCALE_C, rng_seed=seeds, depth=2, unpack=unpack,
+                                     device=device)
+    torch.cuda.synchronize()
+    zero(kernels)
+    got, ticks = [], []
+    t0 = time.perf_counter()
+    for t in range(STREAM_TICKS):
+        got.extend(dec.push(packed[t]))
+        ticks.append(time.perf_counter())
+    got.extend(dec.flush())
+    wall = time.perf_counter() - t0
+    launches = counts(kernels)
+    # the ticks' replays and, on the card, the one eager warm-up step
+    # before the decoder captures its tick at the first push
+    steps = STREAM_TICKS + (device.type == "cuda")
+    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
+    assert len(got) == STREAM_TICKS and len(dec._graphs) == (device.type == "cuda")
+    for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
+        np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {codec} {unpack} t={t}")
+        for k in streaming._RES_KEYS:
+            np.testing.assert_array_equal(res[k], res_w[k],
+                                          err_msg=f"streaming {codec} t={t} {k}")
+    push_ms = np.diff([t0] + ticks) * 1e3
+    print(f"streaming {codec} C={SCALE_C} depth=2 unpack={unpack} (graphed): {STREAM_TICKS} "
+          f"ticks equal to direct steps; {wall / STREAM_TICKS * 1e3!r} wall ms per tick "
+          f"(the first push captures), "
+          f"{float(np.median(push_ms[3:]))!r} median ms per push after the first 3 (which "
+          f"pin their buffers), push ms {push_ms.tolist()!r}, kernel launches {launches} "
+          f"[{card()}]")
+    return push_ms
+
+
+def shim_vs_numpy(native, packed, n_bits, push_ms):
+    """Host ms per call of the C shim's unpack_bits and of its numpy form
+    on one tick's packed bytes (equal results), and the shim's share of a
+    host-unpack push (median `push_ms`)."""
+    got = native.unpack_bits(packed[0], n_bits)
+    np.testing.assert_array_equal(got, native.unpack_bits_reference(packed[0], n_bits))
+    fns = dict(shim=native.unpack_bits, numpy=native.unpack_bits_reference)
+    ms = dict(shim=[], numpy=[])
+    for name in ("shim", "numpy", "numpy", "shim"):
+        t0 = time.perf_counter()
+        for t in range(STREAM_TICKS):
+            fns[name](packed[t], n_bits)
+        ms[name].append((time.perf_counter() - t0) / STREAM_TICKS * 1e3)
+    print(f"native unpack_bits {list(packed.shape[1:])} uint8 -> [{SCALE_C}, {n_bits}] int32 "
+          f"(host ms per call, turns shim numpy numpy shim): shim {ms['shim']!r}, numpy "
+          f"{ms['numpy']!r}; the shim is {min(ms['shim']) / push_ms!r} of the median "
+          f"host-unpack push ({push_ms!r} ms) [{card()}]")
+
+
+def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
     """Phase 7: a checkpoint at full width, then the streaming decoder."""
     from mbe_tpu_torch.models.state import PARMS_FIELDS
     from mbe_tpu_torch.ops.synth import float_to_short
@@ -855,57 +943,37 @@ def phase_state(api, pipeline, checkpoint, streaming, kernels, device):
           f"launches {launches} [{card()}]")
     assert same_pcm and same_state, "checkpoint resume is not bit-exact"
 
-    # the streaming decoder over packed bytes against direct steps
-    bits = rng.integers(0, 2, (STREAM_TICKS, SCALE_C, rows * cols)).astype(np.uint8)
-    packed = np.packbits(bits, axis=-1)
-    frames = torch.as_tensor(bits.reshape(STREAM_TICKS, SCALE_C, rows, cols), device=device)
-    state = api.init_mbe_parms(SCALE_C, seeds, device=device)
-    direct = []
-    for t in range(STREAM_TICKS):
-        state, audio, res, _ = pipeline.step("imbe7200", frames[t], state)
-        direct.append((float_to_short(audio).cpu().numpy(),
-                       {k: v.cpu().numpy() for k, v in res.items()}))
-    for unpack in ("device", "host"):
-        dec = streaming.StreamingDecoder("imbe7200", SCALE_C, rng_seed=seeds, depth=2,
-                                         unpack=unpack, device=device)
-        torch.cuda.synchronize()
-        zero(kernels)
-        got, ticks = [], []
-        t0 = time.perf_counter()
+    # the streaming decoder over packed bytes against direct steps: every
+    # codec unpacked on the device, imbe7200 on the host too (the C shim)
+    for codec in pipeline.CODECS:
+        rows, cols = pipeline.FRAME_SHAPES[codec]
+        bits = rng.integers(0, 2, (STREAM_TICKS, SCALE_C, rows * cols)).astype(np.uint8)
+        packed = np.packbits(bits, axis=-1)
+        frames = torch.as_tensor(bits.reshape(STREAM_TICKS, SCALE_C, rows, cols), device=device)
+        state = api.init_mbe_parms(SCALE_C, seeds, device=device)
+        direct = []
         for t in range(STREAM_TICKS):
-            got.extend(dec.push(packed[t]))
-            ticks.append(time.perf_counter())
-        got.extend(dec.flush())
-        wall = time.perf_counter() - t0
-        launches = counts(kernels)
-        # the ticks' replays and, on the card, the one eager warm-up step
-        # before the decoder captures its tick at the first push
-        steps = STREAM_TICKS + (device.type == "cuda")
-        assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
-        assert len(got) == STREAM_TICKS and len(dec._graphs) == (device.type == "cuda")
-        for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
-            np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {unpack} t={t}")
-            for k in streaming._RES_KEYS:
-                np.testing.assert_array_equal(res[k], res_w[k], err_msg=f"streaming t={t} {k}")
-        push_ms = np.diff([t0] + ticks) * 1e3
-        print(f"streaming imbe7200 C={SCALE_C} depth=2 unpack={unpack} (graphed): {STREAM_TICKS} "
-              f"ticks equal to direct steps; {wall / STREAM_TICKS * 1e3!r} wall ms per tick "
-              f"(the first push captures), "
-              f"{float(np.median(push_ms[3:]))!r} median ms per push after the first 3 (which "
-              f"pin their buffers), push ms {push_ms.tolist()!r}, kernel launches {launches} "
-              f"[{card()}]")
-    pipeline.clear_compiled()
-    for _ in range(2):  # run_sequence over the same frames, PCM read back (the first captures)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, pcm, res = pipeline.run_sequence(
-            "imbe7200", frames, api.init_mbe_parms(SCALE_C, seeds, device=device), int16=True)
-        pcm = pcm.cpu().numpy()
-        wall = time.perf_counter() - t0
-    np.testing.assert_array_equal(pcm, np.stack([p for p, _ in direct]))
-    print(f"run_sequence imbe7200 C={SCALE_C} T={STREAM_TICKS} (graphed), int16 PCM read back: "
-          f"{wall / STREAM_TICKS * 1e3!r} wall ms per frame step [{card()}]")
-    pipeline.clear_compiled()
+            state, audio, res, _ = pipeline.step(codec, frames[t], state)
+            direct.append((float_to_short(audio).cpu().numpy(),
+                           {k: v.cpu().numpy() for k, v in res.items()}))
+        for unpack in ("device", "host") if codec == "imbe7200" else ("device",):
+            push_ms = stream_ticks(streaming, kernels, device, codec, packed, direct, seeds,
+                                   unpack)
+        if codec == "imbe7200":
+            assert native.available(), "the host unpack did not load the C shim"
+            shim_vs_numpy(native, packed, rows * cols, float(np.median(push_ms[3:])))
+        pipeline.clear_compiled()
+        for _ in range(2):  # run_sequence over the same frames, PCM read back (the first captures)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, pcm, res = pipeline.run_sequence(
+                codec, frames, api.init_mbe_parms(SCALE_C, seeds, device=device), int16=True)
+            pcm = pcm.cpu().numpy()
+            wall = time.perf_counter() - t0
+        np.testing.assert_array_equal(pcm, np.stack([p for p, _ in direct]))
+        print(f"run_sequence {codec} C={SCALE_C} T={STREAM_TICKS} (graphed), int16 PCM read "
+              f"back: {wall / STREAM_TICKS * 1e3!r} wall ms per frame step [{card()}]")
+        pipeline.clear_compiled()
 
 
 SHARD_T = 8            # frames of the phase-8 sharded runs
@@ -1020,13 +1088,36 @@ def float_to_short_of(pcm):
     return float_to_short(pcm)
 
 
+MULTIHOST_T = 8         # frames of the phase-9 two-process job
+MULTIHOST_TIMEOUT = 600  # seconds the phase-9 job may take; the golden child, then
+CHILD_TIMEOUT = 270      # the two workers, may each take this long
+
+
+def phase_multihost(ambe_slope_ms):
+    """Phase 9: tools/multihost_smoke_torch.py as a subprocess, two
+    torch.distributed processes of SCALE_C / 2 ambe2450 channels each on
+    cuda:0 against one unsharded process (each worker asserts its own
+    launches and exactness); any failure of it fails this run."""
+    cmd = [sys.executable, str(ROOT / "tools" / "multihost_smoke_torch.py"), "--device", "cuda",
+           "--codec", "ambe2450", "--channels", str(SCALE_C), "--frames", str(MULTIHOST_T),
+           "--timeout", str(CHILD_TIMEOUT)]
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=MULTIHOST_TIMEOUT,
+                          cwd=ROOT)
+    print(proc.stdout, end="")
+    if proc.returncode != 0 or "MULTIHOST SMOKE OK" not in proc.stdout:
+        print(proc.stderr, end="", file=sys.stderr)
+        raise RuntimeError(f"multihost_smoke_torch exited {proc.returncode}")
+    print(f"multihost ambe2450 hard C={SCALE_C} as 2 x {SCALE_C // 2} on cuda:0: beside phase "
+          f"5's graphed slope {ambe_slope_ms!r} ms/frame-step in this process [{card()}]")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's GPU path cannot run here",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from mbe_tpu_torch import api, pipeline
+    from mbe_tpu_torch import api, native, pipeline
     from mbe_tpu_torch.models.state import init_state
     from mbe_tpu_torch.parallel import sharding, streaming
     from mbe_tpu_torch.utils import checkpoint, profiling
@@ -1040,25 +1131,48 @@ def main():
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced)
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as pool:
-        for fut in [pool.submit(k.load_library) for k in kernels.values()]:
-            fut.result()
-    print(f"build {' + '.join(kernels)}: {time.perf_counter() - t0!r} s")
+    t_start = time.perf_counter()
+    seconds = {}
 
-    k_voiced = phase_kernel(voiced, device)
-    k_soft = phase_softecc(ecc, softecc, device)
-    k_unvoiced = phase_unvoiced(unvoiced, device)
-    phase_goldens(pipeline, init_state, kernels, device)
-    paths = {}
-    for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
-                        ("ambe2450", True), ("ambe2400", False)):
-        paths[codec, soft] = scale_path(pipeline, init_state, kernels, device, codec, soft)
-    pipeline.clear_compiled()
-    phase_api(api, pipeline, kernels, device)
-    phase_state(api, pipeline, checkpoint, streaming, kernels, device)
-    phase_sharding(pipeline, sharding, profiling, init_state, kernels, device,
-                   paths["imbe7200", False]["graphed_slope_ms"])
+    def phase(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        print(f"phase {name}: {seconds[name]!r} s", flush=True)
+        return out
+
+    def build():
+        with ThreadPoolExecutor(len(kernels)) as pool:
+            for fut in [pool.submit(k.load_library) for k in kernels.values()]:
+                fut.result()
+        print(f"build {' + '.join(kernels)}")
+
+    def scale():
+        paths = {}
+        for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
+                            ("ambe2450", True), ("ambe2400", False)):
+            paths[codec, soft] = scale_path(pipeline, init_state, kernels, device, codec, soft)
+        for codec, soft in (("imbe7100", False), ("imbe7100", True), ("ambe2400", True)):
+            paths[codec, soft] = scale_graphed_path(pipeline, init_state, kernels, device, codec,
+                                                    soft)
+        pipeline.clear_compiled()
+        return paths
+
+    phase("2 build", build)
+    k_voiced = phase("3 voiced_sums", phase_kernel, voiced, device)
+    k_soft = phase("3b soft_decode", phase_softecc, ecc, softecc, device)
+    k_unvoiced = phase("3c unvoiced_wola", phase_unvoiced, unvoiced, device)
+    phase("4 goldens", phase_goldens, pipeline, init_state, kernels, device)
+    paths = phase("5 full width", scale)
+    phase("6 api", phase_api, api, pipeline, kernels, device)
+    phase("7 state and streaming", phase_state, api, pipeline, checkpoint, streaming, native,
+          kernels, device)
+    phase("8 sharding", phase_sharding, pipeline, sharding, profiling, init_state, kernels,
+          device, paths["imbe7200", False]["graphed_slope_ms"])
+    torch.cuda.empty_cache()
+    phase("9 multihost", phase_multihost, paths["ambe2450", False]["graphed_slope_ms"])
+    print(f"seconds per phase {seconds!r}; total {time.perf_counter() - t_start!r} s "
+          f"[{card_line}]")
 
     print(json.dumps({"kernels": [
         {"name": "voiced_sums", "route": "cuda",

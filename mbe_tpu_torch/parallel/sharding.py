@@ -10,6 +10,8 @@ their trailing axis; frames and PCM are channel-major and split on their
 leading one. `torch.tensor_split` cuts both the same way.
 """
 
+import os
+
 import torch
 
 from .. import pipeline
@@ -150,18 +152,49 @@ def sharded_sequence(codec: str, mesh):
     return fn
 
 
+def _distributed() -> bool:
+    return torch.distributed.is_available() and torch.distributed.is_initialized()
+
+
 def global_channel_mesh() -> list:
-    """This process's devices: with no collective in the hot path, a
-    process never needs another's (each process decodes its own channel
-    shard)."""
-    return channel_mesh()
+    """This process's devices, the counterpart of a JAX process's
+    addressable devices: with no collective in the hot path, a process
+    never needs another's (each process decodes its own channel slice,
+    host_local_slice).
+
+    Without torch.distributed initialized it is every CUDA device
+    (channel_mesh()). Initialized, with local rank r and local world size
+    L (LOCAL_RANK and LOCAL_WORLD_SIZE, as torchrun sets them; without
+    them the distributed rank and world size, which assumes one node) and
+    n visible GPUs: L <= n gives the devices {i : i % L == r}, disjoint
+    between the node's processes; L > n gives [cuda:(r % n)], so
+    processes share a card."""
+    devices = channel_mesh()
+    if not _distributed():
+        return devices
+    dist = torch.distributed
+    rank = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", dist.get_world_size()))
+    if local <= len(devices):
+        return [d for i, d in enumerate(devices) if i % local == rank]
+    return [devices[rank % len(devices)]]
 
 
 def host_local_channels(total_channels: int) -> int:
     """Channels owned by this process: total / the torch.distributed world
     size (1 when it is not initialized); the split must be exact."""
-    world = (torch.distributed.get_world_size()
-             if torch.distributed.is_available() and torch.distributed.is_initialized() else 1)
+    world = torch.distributed.get_world_size() if _distributed() else 1
     if total_channels % world:
         raise ValueError(f"{total_channels} channels do not split over {world} processes")
     return total_channels // world
+
+
+def host_local_slice(total_channels: int) -> slice:
+    """The global channels this process owns: process p of P owns
+    [p * C / P, (p + 1) * C / P), the order of the JAX mesh's devices and
+    the counterpart of the index that make_array_from_callback passes to a
+    JAX process. Raises as host_local_channels does when the split is not
+    exact."""
+    n = host_local_channels(total_channels)
+    rank = torch.distributed.get_rank() if _distributed() else 0
+    return slice(rank * n, (rank + 1) * n)

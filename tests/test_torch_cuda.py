@@ -1,8 +1,9 @@
 """The port on the card: the voiced, soft-decode and unvoiced kernels
 against their plain versions, the golden vectors through the pipeline and
 the public API with the kernels in the loop, checkpoints, the streaming
-decoder, the compiled step (a CUDA graph replay, bit-exact against the
-eager step), channel sharding and the profiling helpers.
+decoder (and the C host shim), the compiled step (a CUDA graph replay,
+bit-exact against the eager step), channel sharding, the two-process job
+and the profiling helpers.
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -360,6 +361,70 @@ def test_streaming_on_card(cuda_device, unpack):
         for (pcm, res), (pcm_w, te_w) in zip(got, want):
             np.testing.assert_array_equal(pcm, pcm_w)
             np.testing.assert_array_equal(res["total_errors"], te_w)
+
+
+@pytest.mark.cuda
+def test_streaming_ambe2400_on_card(cuda_device):
+    """StreamingDecoder("ambe2400") at a ragged C = 33 on the card equals
+    direct steps (int16 PCM and every result word), tolerance 0."""
+    from mbe_tpu_torch.parallel.streaming import StreamingDecoder, _RES_KEYS
+    C, T = 33, 6
+    rng = np.random.default_rng(13)
+    bits = rng.integers(0, 2, (T, C, 96)).astype(np.uint8)
+    seeds = np.arange(1, C + 1, dtype=np.uint32)
+    state = st.init_state(C, rng_seed=seeds, device=cuda_device)
+    want = []
+    for t in range(T):
+        state, audio, res, _ = pipeline.step(
+            "ambe2400", torch.as_tensor(bits[t].reshape(C, 4, 24), device=cuda_device), state)
+        want.append((synth.float_to_short(audio).cpu().numpy(),
+                     {k: v.cpu().numpy() for k, v in res.items()}))
+    dec = StreamingDecoder("ambe2400", C, rng_seed=seeds, depth=2)
+    got = []
+    for t in range(T):
+        got.extend(dec.push(np.packbits(bits[t], axis=1)))
+    got.extend(dec.flush())
+    assert len(got) == T and len(dec._graphs) == 1
+    for (pcm, res), (pcm_w, res_w) in zip(got, want):
+        np.testing.assert_array_equal(pcm, pcm_w)
+        for k in _RES_KEYS:
+            np.testing.assert_array_equal(res[k], res_w[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_native_shim_on_card_machine(cuda_device):
+    """The C shim builds with the GPU host's C compiler and equals its
+    numpy forms (unpack at C = 32768 x imbe7200's 23 bytes)."""
+    from mbe_tpu_torch import native
+    rng = np.random.default_rng(3)
+    packed = rng.integers(0, 256, (32768, 23)).astype(np.uint8)
+    np.testing.assert_array_equal(native.unpack_bits(packed, 184),
+                                  native.unpack_bits_reference(packed, 184))
+    assert native.available()
+    bits = rng.integers(0, 2, (100, 49)).astype(np.int32)
+    np.testing.assert_array_equal(native.pack_bits(bits), native.pack_bits_reference(bits))
+    pcm = rng.integers(-32768, 32768, (64, 160)).astype(np.int16)
+    np.testing.assert_array_equal(native.interleave_pcm(pcm), native.interleave_pcm_reference(pcm))
+    idx = np.arange(-2, 15, dtype=np.int32)
+    np.testing.assert_array_equal(native.scatter_bits(bits[:, :12], idx, idx.size),
+                                  native.scatter_bits_reference(bits[:, :12], idx, idx.size))
+
+
+@pytest.mark.cuda
+def test_two_process_job_on_card(cuda_device):
+    """tools/multihost_smoke_torch.py on cuda:0: two gloo processes of 32
+    channels each (the tiled e2e_ambe2450 golden, C = 64) against one
+    unsharded process, result words, state leaves and PCM exact."""
+    import subprocess
+    import sys
+    tool = Path(__file__).resolve().parent.parent / "tools" / "multihost_smoke_torch.py"
+    proc = subprocess.run([sys.executable, str(tool), "--device", "cuda", "--timeout", "240"],
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "MULTIHOST SMOKE OK" in proc.stdout
+    for rank in (0, 1):
+        assert f"worker {rank}: channels [{32 * rank}, {32 * rank + 32}) of 64" in proc.stdout
+    assert proc.stdout.count("PCM and") == 2 and "float state leaves exact" in proc.stdout
 
 
 # --- the compiled step, sharding and profiling on the card ---------------------

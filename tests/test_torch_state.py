@@ -132,15 +132,21 @@ def test_precision_pins():
 
 
 def test_port_imports_neither_jax_nor_mbe_tpu():
-    """Static scan: no module of mbe_tpu_torch, nor chip_smoke.py (which
-    runs on a card machine with no jax), imports jax or mbe_tpu."""
+    """Static scan: no module of mbe_tpu_torch, nor chip_smoke.py, the
+    port's tools (tools/*_torch*.py) and examples (examples/*_torch.py),
+    which run on a card machine with no jax, imports jax or mbe_tpu."""
     files = sorted(PKG.rglob("*.py"))
     assert len(files) >= 15
     scanned = {str(f.relative_to(PKG)) for f in files}
-    assert {"parallel/sharding.py", "utils/profiling.py", "utils/graphs.py"} <= scanned
+    assert {"parallel/sharding.py", "utils/profiling.py", "utils/graphs.py",
+            "native.py"} <= scanned
     smoke = PKG.parent / "chip_smoke.py"
     assert smoke.is_file()
-    for path in files + [smoke]:
+    tools = sorted((PKG.parent / "tools").glob("*_torch*.py"))
+    examples = sorted((PKG.parent / "examples").glob("*_torch.py"))
+    assert {"multihost_smoke_torch.py", "profile_torch_step.py"} <= {f.name for f in tools}
+    assert [f.name for f in examples] == ["decode_stream_torch.py"]
+    for path in files + [smoke] + tools + examples:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
