@@ -1,0 +1,9 @@
+"""Share of the traced slice in which no operation ran on the device, in %
+(device): 1 - union of the device operations' intervals / the slice."""
+
+
+def read(run):
+    t = run.trace
+    if t is None or t["window_s"] <= 0 or t["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])
