@@ -17,6 +17,7 @@ import torch
 
 from ..ops import demod, ecc, noise, synth
 from ..ops.bits import field, lookup, pack_descending, powers_of_two
+from ..ops.cuda import marks
 from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
@@ -405,6 +406,7 @@ def process_ambe2450(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
     comfort_rng', lcg_prime', flags dict of [C] bool: erasure, tone,
     repeat, mute).
     """
+    marks.mark("fsm", ambe_d)
     cur, prev, enh = _ambe_prepare(total_errors, cur, prev, enh)
     c0e = torch.where(c0_valid, c0_errors, 0)
     cur, prev, bad = decode_ambe2450_parms(ambe_d, cur, prev, total_errors)
@@ -428,6 +430,7 @@ def process_ambe2450(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
     tone_replay = is_tone & ~tone_valid & (prev.repeatCount < 4)
     tone_cn = is_tone & ~tone_valid & ~tone_replay
 
+    marks.mark("synthesis", ambe_d)
     cn, new_rng = noise.comfort_noise(comfort_rng)
     audio_s, synth_out, prev_raw, aux = _speech_paths(cur, enh, voice_ok, tone_replay, cn,
                                                       lcg_prime)
@@ -444,6 +447,7 @@ def process_ambe2450(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
     lcg_prime = torch.where(do_speech & aux["cold_consumed"], noise.LCG_DEFAULT_SEED, lcg_prime)
 
     # -- state commits -------------------------------------------------------
+    marks.mark("fsm", ambe_d)
     defaults = ambe_default_parms_like(cur)
     reinit = voice_mute | tone_cn
     cur_tone = dataclasses.replace(cur, swn=swn2, tonePhase=tp2)
@@ -459,6 +463,7 @@ def process_ambe2400(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
                      enh: Parms, comfort_rng, lcg_prime, tones_enabled: bool = True):
     """Batched mbe_processAmbe2400Dataf (ambe3600x2400.c:732-762). Arguments
     and returns as process_ambe2450; the erasure flag is never set."""
+    marks.mark("fsm", ambe_d)
     cur, prev, enh = _ambe_prepare(total_errors, cur, prev, enh)
     c0e = torch.where(c0_valid, c0_errors, 0)
     cur, prev, bad = decode_ambe2400_parms(ambe_d, cur, prev)
@@ -476,6 +481,7 @@ def process_ambe2400(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
     voice_ok = voice & (cur.repeatCount < 4)
     voice_mute = voice & ~voice_ok
 
+    marks.mark("synthesis", ambe_d)
     cn, new_rng = noise.comfort_noise(comfort_rng)
     audio_s, synth_out, prev_raw, aux = _speech_paths(
         cur, enh, voice_ok, torch.zeros_like(voice_ok), cn, lcg_prime)
@@ -491,6 +497,7 @@ def process_ambe2400(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
                               comfort_rng)
     lcg_prime = torch.where(voice_ok & aux["cold_consumed"], noise.LCG_DEFAULT_SEED, lcg_prime)
 
+    marks.mark("fsm", ambe_d)
     defaults = ambe_default_parms_like(cur)
     cur_tone = dataclasses.replace(cur, swn=swn2, tonePhase=tp2)
     new_cur = select_cases([(voice_ok, synth_out), (dstar_tone, cur_tone),

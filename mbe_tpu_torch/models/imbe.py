@@ -17,6 +17,7 @@ import torch
 
 from ..ops import demod, ecc, noise
 from ..ops.bits import lookup, pack_descending, powers_of_two
+from ..ops.cuda import marks
 from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
@@ -534,6 +535,7 @@ def process_imbe4400(words, total_errors, c0_errors, c4_errors,
     Returns: (audio [160, C] f32, cur', prev', enh', comfort_rng',
     lcg_prime', flags dict of [C] bool: repeat, mute).
     """
+    marks.mark("fsm", total_errors)
     if c0_valid is not None:
         c0_errors = torch.where(c0_valid, c0_errors, 0)
     if c4_valid is not None:
@@ -568,6 +570,7 @@ def process_imbe4400(words, total_errors, c0_errors, c4_errors,
     # -- synthesis (imbe7200x4400.c:842-856): always runs -------------------
     muted = (cur.repeatCount >= 4) | (cur.errorRate > cur.mutingThreshold)
     prev = cur
+    marks.mark("synthesis", total_errors)
     Ml_e, rm0 = spectral_amp_enhance(cur.w0, cur.L, cur.Ml)
     cur = dataclasses.replace(cur, Ml=Ml_e)
     cn, new_rng = noise.comfort_noise(comfort_rng)

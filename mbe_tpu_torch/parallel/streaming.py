@@ -19,6 +19,13 @@ event only when it yields that tick, `depth` ticks later. The pinned
 buffers rotate over depth + 1 slots: a slot is written again only after
 the tick that last used it has been read back (its input copy and its
 step come before its readback on the one stream).
+
+The host phases of a tick are spans (utils/spans.py): `mbe.stream.stage`
+(host unpack, the pinned copy and the upload's enqueue), the replay's
+`mbe.graph.replay`, and at readback `mbe.stream.wait` and
+`mbe.stream.copy_out`. The tick's graph carries the step's region marks
+(ops/cuda/marks.py), from bit_domain before the unpack to end after the
+bundle.
 """
 
 import collections
@@ -29,7 +36,9 @@ import torch
 from .. import native, pipeline
 from ..models import state as state_mod
 from ..ops import synth as synth_ops
+from ..ops.cuda import marks
 from ..utils import graphs
+from ..utils.spans import span
 
 # Fixed key order for the bundled result block (see _bundle below).
 _RES_KEYS = ("c0_errors", "protected_errors", "c4_errors", "total_errors", "flags")
@@ -97,7 +106,7 @@ class StreamingDecoder:
         self._slots = [dict(inp=None, out=None) for _ in range(depth + 1)]
         self._tick = 0
         self._inflight = collections.deque()
-        self._graphs = {}  # (input shape, dtype) -> (static input, Captured)
+        self._graphs = {}  # (input shape, dtype) -> [static input, Captured]
 
     @staticmethod
     def _pinned(buf, like):
@@ -111,43 +120,57 @@ class StreamingDecoder:
         """One tick on the device: the frame from `inp` ([C, S] uint8 packed
         bytes, unpacked here, or [C, rows, cols] int32 bit planes), the step
         with its new state copied into `state`, and the bundle."""
+        marks.mark("bit_domain", inp)
         frame = (unpack_bits_device(inp, self.n_bits).reshape(self.channels, self.rows, self.cols)
                  if inp.dtype == torch.uint8 else inp)
         new_state, audio, res, _ = pipeline.step(self.codec, frame, state)
         graphs.copy_into(graphs.leaves(state), graphs.leaves(new_state))
         if self._int16:
             audio = synth_ops.float_to_short(audio)
-        return _bundle(audio, res)
+        out = _bundle(audio, res)
+        marks.mark("end", out)
+        return out
 
-    def _graph(self, host):
-        """The static input and captured tick for inputs like `host`,
-        captured at their first use."""
+    def _entry(self, host):
+        """[static input, captured tick] for inputs like `host`: the static
+        input made at their first use, the tick captured by `_captured`."""
         key = (tuple(host.shape), host.dtype)
         if key not in self._graphs:
-            inp = torch.zeros(host.shape, dtype=host.dtype, device=self._device)
-            self._graphs[key] = inp, graphs.Captured(
+            self._graphs[key] = [torch.zeros(host.shape, dtype=host.dtype, device=self._device),
+                                 None]
+        return self._graphs[key]
+
+    def _captured(self, entry):
+        """The tick over entry's static input, captured at its first replay
+        (after the upload, outside the stage span, which it would swamp)."""
+        if entry[1] is None:
+            inp = entry[0]
+            entry[1] = graphs.Captured(
                 lambda: self._body(inp, self._state), self._device,
                 warmup=lambda: self._body(inp, state_mod.map_state(torch.clone, self._state)))
-        return self._graphs[key]
+        return entry[1]
 
     def _launch(self, packed_frames):
         """Queue one tick: upload, replay (unpack, step, bundle) and start
         the readback."""
         slot = self._slots[self._tick % len(self._slots)]
         self._tick += 1
-        arr = np.asarray(packed_frames)
-        if arr.dtype == np.uint8 and arr.ndim == 2 and self._unpack_mode == "host":
-            arr = native.unpack_bits(arr.reshape(self.channels, -1), self.n_bits)
-        if not (arr.dtype == np.uint8 and arr.ndim == 2):
-            arr = np.asarray(arr, np.int32).reshape(self.channels, self.rows, self.cols)
-        host = torch.from_numpy(np.ascontiguousarray(arr))
+        with span("mbe.stream.stage"):
+            arr = np.asarray(packed_frames)
+            if arr.dtype == np.uint8 and arr.ndim == 2 and self._unpack_mode == "host":
+                arr = native.unpack_bits(arr.reshape(self.channels, -1), self.n_bits)
+            if not (arr.dtype == np.uint8 and arr.ndim == 2):
+                arr = np.asarray(arr, np.int32).reshape(self.channels, self.rows, self.cols)
+            host = torch.from_numpy(np.ascontiguousarray(arr))
+            if self._cuda:
+                entry = self._entry(host)
+                slot["inp"] = self._pinned(slot["inp"], host)
+                slot["inp"].copy_(host)
+                entry[0].copy_(slot["inp"], non_blocking=True)
         if not self._cuda:
             self._inflight.append((None, self._body(host.to(self._device), self._state)))
             return
-        inp, graph = self._graph(host)
-        slot["inp"] = self._pinned(slot["inp"], host)
-        slot["inp"].copy_(host)
-        inp.copy_(slot["inp"], non_blocking=True)
+        graph = self._captured(entry)
         graph.replay()
         slot["out"] = self._pinned(slot["out"], graph.outputs)
         slot["out"].copy_(graph.outputs, non_blocking=True)
@@ -157,9 +180,11 @@ class StreamingDecoder:
 
     def _collect(self):
         done, buf = self._inflight.popleft()
-        if done is not None:
-            done.synchronize()
-        return _unbundle(buf.numpy().copy())
+        with span("mbe.stream.wait"):
+            if done is not None:
+                done.synchronize()
+        with span("mbe.stream.copy_out"):
+            return _unbundle(buf.numpy().copy())
 
     def push(self, packed_frames):
         """Feed one 20 ms frame for every channel ([C, bytes] uint8 or

@@ -22,6 +22,7 @@ from .models.state import ChannelState, map_state
 from .utils import graphs
 from .ops import bits as bit_ops
 from .ops import synth as synth_ops
+from .ops.cuda import marks
 from .ops.bits import STATUS_INVALID_BITS, STATUS_OK  # noqa: F401  (the result's status)
 from .utils.config import DEFAULT as DEFAULT_CONFIG, DecoderConfig
 
@@ -75,6 +76,10 @@ def step(codec: str, frame, state: ChannelState, soft_rel=None,
       status -2 when config.validate_lanes (mbe_result.h:18-42);
       reliabilities are then clamped to the uint8 range the C type
       enforces.
+
+    On the card the step's device work carries region marks
+    (ops/cuda/marks.py): bit_domain here, fsm and synthesis in the
+    process functions, commit once they return.
     """
     if codec not in CODECS:
         raise ValueError(f"unknown codec {codec!r}")
@@ -83,6 +88,7 @@ def step(codec: str, frame, state: ChannelState, soft_rel=None,
         raise ValueError("AMBE steps need a carried enh state; "
                          "use init_state(carry_enh=True)")
     soft = soft_rel is not None
+    marks.mark("bit_domain", frame)
 
     if config.validate_lanes:
         lanes_valid = bit_ops.bits_valid(frame)
@@ -115,6 +121,7 @@ def step(codec: str, frame, state: ChannelState, soft_rel=None,
         if state.enh is None:
             enh = None
         base |= FLAG_C4_VALID
+    marks.mark("commit", frame)
     new_state = ChannelState(cur=cur, prev=prev, enh=enh, comfort_rng=rng, lcg_prime=lcgp)
 
     res = dict(c0_errors=c0, protected_errors=prot, c4_errors=c4,
@@ -198,6 +205,7 @@ class CompiledStep:
             audio = synth_ops.float_to_short(audio)
         graphs.copy_into(graphs.leaves(state), graphs.leaves(new_state))
         words = torch.stack([v.to(torch.int32) for v in res.values()], dim=1)
+        marks.mark("end", words)
         return audio, words, {k: words[:, i] for i, k in enumerate(res)}, d
 
     def __call__(self, frame, soft_rel=None):

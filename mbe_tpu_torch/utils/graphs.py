@@ -15,7 +15,8 @@ The hand-written kernels count their launches in Python
 counter during the capture is the number of that kernel's nodes in the
 graph: it is taken back after the capture, which launches nothing, and
 added on every replay. A capture that fails raises; nothing falls back to
-eager execution.
+eager execution. Each replay is a host span, `mbe.graph.replay`
+(utils/spans.py).
 """
 
 import dataclasses
@@ -23,6 +24,7 @@ import dataclasses
 import torch
 
 from ..ops.cuda import softecc, unvoiced, voiced
+from .spans import span
 
 KERNELS = (voiced, softecc, unvoiced)
 
@@ -84,7 +86,7 @@ class Captured:
     def replay(self):
         """Replay on the current stream of `device`; the kernels' counters
         advance by their launches in the graph."""
-        with torch.cuda.device(self.device):
+        with span("mbe.graph.replay"), torch.cuda.device(self.device):
             self.graph.replay()
         for m, n in zip(KERNELS, self.launches):
             m.LAUNCHES += n

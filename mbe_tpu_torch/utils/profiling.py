@@ -1,5 +1,6 @@
 """Profiling helpers (port of mbe_tpu.utils.profiling): a torch.profiler
-trace and steady-state time per iteration.
+trace and steady-state time per iteration, and the program's host spans
+(`span`, `snapshot`: utils/spans.py).
 
 The reference's measurement protocol carries over: TWO run lengths, each
 ended by a real host readback (`force`), and the time per iteration is
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from . import graphs
+from .spans import snapshot, span  # noqa: F401  (the program's host spans)
 
 
 @contextlib.contextmanager

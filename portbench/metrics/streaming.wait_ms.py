@@ -1,0 +1,10 @@
+"""Host ms per tick in the program's mbe.stream.wait span (streaming):
+waiting for a tick's readback event, depth ticks after its launch; total
+ns over count over the whole run from the program's counters (some
+8,100-9,550 ticks in 51 s, the 8 warm-up and 40 traced ticks included)."""
+
+from portbench.metrics.program_spans import mean_ms
+
+
+def read(run):
+    return mean_ms("mbe.stream.wait")

@@ -2,8 +2,9 @@
 against their plain versions, the golden vectors through the pipeline and
 the public API with the kernels in the loop, checkpoints, the streaming
 decoder (and the C host shim), the compiled step (a CUDA graph replay,
-bit-exact against the eager step), channel sharding, the two-process job
-and the profiling helpers.
+bit-exact against the eager step), channel sharding, the two-process job,
+the profiling helpers and the tracing (region marks in traced replays and
+ticks, host span counts).
 
 Marked `cuda`; without a card every test skips. This file imports
 neither jax nor mbe_tpu (nor the jax-importing conftest's helpers), so
@@ -526,6 +527,143 @@ def test_device_time_matmul_against_peak(cuda_device):
     sec = profiling.device_time(lambda c: a @ c, x, iters=50, short_iters=10)
     peak = 2 * n ** 3 / 989e12
     assert 1.0 <= sec / peak <= 4.0, (sec, peak)
+
+
+# --- tracing: region marks in the graphs, host spans ---------------------------
+
+STEP_MARKS = {"imbe7200": ["bit_domain", "fsm", "synthesis", "commit", "end"],
+              "ambe2450": ["bit_domain", "fsm", "synthesis", "fsm", "commit", "end"]}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _device_ops(fn, tmp_path):
+    """Device operations (start_us, end_us, name, category) of fn() under
+    torch.profiler with CUDA activities, sorted by start."""
+    import json
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]), str(e["name"]),
+                   str(e.get("cat", "")).lower()) for e in events
+                  if e.get("ph") == "X" and str(e.get("cat", "")).lower() in DEVICE_CATS)
+
+
+def _busy_us(intervals):
+    """Length of the union of [start, end) intervals."""
+    total, hi = 0.0, None
+    for s, e in sorted(intervals):
+        if hi is None or s > hi:
+            total, hi = total + e - s, e
+        elif e > hi:
+            total, hi = total + e - hi, e
+    return total
+
+
+def _steps_by_region(ops):
+    """Per step (a bit_domain mark after an end mark, or the first one, to
+    the next end mark, both included): marks in order, region -> summed op
+    us (the end mark's own time in none), and busy us, the union of the
+    step's ops; and the ops outside every step."""
+    steps, outside, cur, region = [], [], None, None
+    for s, e, name, cat in ops:
+        if name.startswith("mbe_region_"):
+            r = name[len("mbe_region_"):]
+            if cur is None:
+                assert r == "bit_domain", name
+                cur = {"marks": [], "us": {}, "ops": []}
+            cur["marks"].append(r)
+            region = r
+            if r == "end":
+                cur["ops"].append((s, e))
+                cur["busy"] = _busy_us(cur.pop("ops"))
+                steps.append(cur)
+                cur = None
+                continue
+        if cur is None:
+            outside.append((s, e, name, cat))
+        else:
+            cur["ops"].append((s, e))
+            cur["us"][region] = cur["us"].get(region, 0.0) + (e - s)
+    assert cur is None, "a step without its end mark"
+    return steps, outside
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,soft", [("imbe7200", False), ("ambe2450", True)])
+def test_region_marks_in_a_traced_replay_on_card(cuda_device, tmp_path, codec, soft):
+    """Three traced CompiledStep replays at C = 4096: each holds the
+    region marks in the step's order and mbe_region_end once; its four
+    regions add up to its busy time (the union of its device ops, first
+    mark to end mark) within 2%, and each is above 0; the mbe.graph.replay
+    span counts one per replay."""
+    from mbe_tpu_torch.utils import profiling
+    C, reps = 4096, 3
+    rng = np.random.default_rng(21)
+    shape = (C, *pipeline.FRAME_SHAPES[codec])
+    frame = torch.as_tensor(rng.integers(0, 2, shape), dtype=torch.int32, device=cuda_device)
+    rel = (torch.as_tensor(rng.integers(0, 256, shape), dtype=torch.int32, device=cuda_device)
+           if soft else None)
+    compiled = pipeline.CompiledStep(codec, st.init_state(C, device=cuda_device), soft=soft,
+                                     int16=True)
+    compiled(frame, rel)
+    torch.cuda.synchronize()
+    count0 = profiling.snapshot()["mbe.graph.replay"][0]
+
+    def replays():
+        for _ in range(reps):
+            compiled(frame, rel)
+
+    steps, _ = _steps_by_region(_device_ops(replays, tmp_path))
+    assert profiling.snapshot()["mbe.graph.replay"][0] - count0 == reps
+    assert len(steps) == reps
+    for step in steps:
+        assert step["marks"] == STEP_MARKS[codec]
+        regions = {r: step["us"].get(r, 0.0) for r in ("bit_domain", "fsm", "synthesis",
+                                                        "commit")}
+        assert all(v > 0 for v in regions.values()), regions
+        assert abs(sum(regions.values()) - step["busy"]) <= 0.02 * step["busy"], (regions, step)
+
+
+@pytest.mark.cuda
+def test_region_marks_and_spans_in_traced_streaming_ticks_on_card(cuda_device, tmp_path):
+    """Three traced StreamingDecoder ticks (imbe7200, C = 4096, depth 2,
+    device unpack): each tick's graph marks bit_domain before its unpack,
+    then the step's regions, and end once after the bundle; the tick's
+    upload and readback copies lie outside every step; mbe.graph.replay
+    and each mbe.stream.* span count one per tick."""
+    from mbe_tpu_torch.parallel.streaming import StreamingDecoder
+    from mbe_tpu_torch.utils import profiling
+    C, ticks = 4096, 3
+    rng = np.random.default_rng(22)
+    pool = rng.integers(0, 256, (8, C, 23), dtype=np.uint8)
+    dec = StreamingDecoder("imbe7200", C, rng_seed=np.arange(1, C + 1, dtype=np.uint32), depth=2,
+                           device=cuda_device)
+    for t in range(4):
+        list(dec.push(pool[t]))
+    torch.cuda.synchronize()
+    names = ("mbe.graph.replay", "mbe.stream.stage", "mbe.stream.wait", "mbe.stream.copy_out")
+    before = profiling.snapshot()
+    got = []
+
+    def push():
+        for t in range(ticks):
+            got.extend(dec.push(pool[4 + t]))
+
+    steps, outside = _steps_by_region(_device_ops(push, tmp_path))
+    after = profiling.snapshot()
+    assert len(got) == ticks and len(steps) == ticks
+    for name in names:
+        assert after[name][0] - before[name][0] == ticks, name
+    for step in steps:
+        assert step["marks"] == ["bit_domain"] + STEP_MARKS["imbe7200"]
+    copies = [op for op in outside if op[3] == "gpu_memcpy"]
+    assert len(copies) == 2 * ticks, outside
+    list(dec.flush())
 
 
 @pytest.mark.cuda
