@@ -5,9 +5,9 @@
 
 Phases, each asserting (any failure ends the run with a nonzero exit):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the three kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
-     soft_decode (csrc/softecc.cu) and unvoiced_wola (csrc/unvoiced.cu),
-     one nvcc each, started together;
+  2. build the four kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
+     soft_decode (csrc/softecc.cu), unvoiced_wola (csrc/unvoiced.cu) and
+     sources (csrc/sources.cu), one nvcc each, started together;
   3. voiced_sums against its plain PyTorch version on the card at
      C = 16, 1000 and 32768, an eighth of the lanes (at least 4) edge
      lanes with steps s in {1e-4, 1e-3, pi - 1e-3, 3}: max |err| /
@@ -20,6 +20,14 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      and 32768 (an eighth of the lanes at w0 = 0, an eighth at L = 56):
      max |err| / max |ref| < 1e-4 on add and on the new previousUw, both
      timed;
+  3d. sources, through its three dispatchers (noise.comfort_noise,
+     noise.generate_noise_with_overlap, synth.render_tone) on card
+     tensors, against their plain forms on the card at C = 16, 1000 and
+     32768 (every output bit-equal, floats compared as int32), each
+     launching once; kernel and plain timed inside CUDA graphs (as the
+     main path runs them; an eager call's time is printed beside), summed
+     at C = 32768 per IMBE step (comfort noise and LCG buffer) and per AMBE
+     step (and the tone);
   4. the golden vectors through the port's pipeline on the card, each
      twice: e2e_{imbe7200,imbe7100,ambe2450,ambe2400}, hard and soft (C=16,
      T=40), and long_{imbe7200,imbe7100,ambe2450,ambe2400} (C=4, T=200),
@@ -31,7 +39,8 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      where a float is not, integers stay exact and the PCM is >= 60 dB per
      frame against eager, printed); voiced_sums and unvoiced_wola launched
      (or replayed) once per frame, soft_decode 3 times per soft IMBE frame
-     and 2 times per soft AMBE frame;
+     and 2 times per soft AMBE frame, sources 2 times per IMBE frame and 3
+     times per AMBE frame;
   5. the main paths at full width: C = 32768 channels of random frames at
      T = 8 and T = 48, all eight configurations of bench.py: imbe7200 hard
      and soft, ambe2450 hard and soft, ambe2400 hard (soft input is random
@@ -87,7 +96,7 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
 
 Every kernel launch counter is zeroed just before each path of phases
 4-9 and read just after it (phase 9's in its worker processes); each
-path asserts its B1, B2 and B3 counts. A graph replay runs no Python: the compiled step adds its graph's launches
+path asserts its B1, B2, B3 and S (sources) counts. A graph replay runs no Python: the compiled step adds its graph's launches
 of each kernel (the counts during its capture) to the counters on every
 replay, and phase 5's profiler traces count the kernels themselves.
 `bound_ms` in the kernels JSON is the least time the
@@ -95,7 +104,9 @@ card could take for the function on this run's inputs: the larger of the
 bytes it must move over the memory rate and its operations of each type
 over that type's peak rate (H100 SXM data sheet, dense). The operations
 are those the function needs, not those of the port's kernel design; the
-design's own floor is printed beside it. The last lines are the
+design's own floor is printed beside it. The sources entry's `ms`,
+`plain_ms` and `bound_ms` are an AMBE step's three launches at C = 32768;
+`ms_imbe_step` and its companions an IMBE step's two. The last lines are the
 kernels JSON, the card, and {"ok": true, "device": {...}}. There is no
 CPU path: without a CUDA device, or without the package beside this
 script, it exits nonzero.
@@ -125,6 +136,8 @@ SCALE_REPS = 5         # runs per T in phase 5; the slope takes the fastest of e
 SCALE_REPS_EAGER = 3   # runs per T of phase 5's eager arm (the graphed arm keeps 5)
 UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
 B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
+# S launches per step: comfort noise and the LCG buffer, and the tone in AMBE
+S_PER_STEP = {"imbe7200": 2, "imbe7100": 2, "ambe2450": 3, "ambe2400": 3}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
 BF16_FLOP_S = 989e12   # tensor cores, bf16 in, FP32 accumulate
@@ -373,6 +386,128 @@ def phase_unvoiced(unvoiced, device):
     return dict(max_abs_err=worst_abs, ms=ms, plain_ms=plain_ms, **b)
 
 
+def sources_inputs(noise, c, device):
+    """The three dispatchers' inputs at width c (as tests/test_torch_cuda.py
+    makes them): Java-Random limbs from random seeds with seeds 0, 1 and
+    0xFFFFFFFF and all-0xFFFF limbs in every fifth lane; LCG seeds cold (<
+    0), 0, 53124, fractional and random, previous seeds < 0 on a third of
+    the lanes, fractional primes; tone ids cycling 0..255 with a few out of
+    range, amplitudes -1..127, phases random and near 2^32 - 1."""
+    rng = np.random.default_rng(SEED + c)
+    seeds = rng.integers(0, 1 << 32, c, dtype=np.uint64).astype(np.int64)
+    seeds[:3] = [0, 1, 0xFFFFFFFF][:c]
+    limbs = noise.java_random_init(torch.as_tensor(seeds, device=device))
+    limbs[:, 4::5] = 0xFFFF
+    seed = rng.integers(0, 53125, c).astype(np.float32)
+    pick = rng.integers(0, 6, c)
+    seed = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                     [np.float32(-1.0), np.float32(0.0), np.float32(53124.0),
+                      seed + np.float32(0.5)], seed).astype(np.float32)
+    prev = rng.integers(0, 53125, c).astype(np.float32)
+    prev[rng.integers(0, 3, c) == 0] = -1.0
+    prime = (rng.integers(0, 53125, c) + rng.uniform(0, 1, c)).astype(np.float32)
+    tone = (np.arange(c) % 256).astype(np.int32)
+    tone[7::97] = -3
+    tone[11::89] = 300
+    amp = rng.integers(-1, 128, c).astype(np.int32)
+    phases = rng.integers(0, 1 << 32, (2, c), dtype=np.uint64).astype(np.int64)
+    phases[:, 1::3] = (1 << 32) - 1 - rng.integers(0, 4096, (2, len(range(1, c, 3))))
+
+    def t(*arrays):
+        return [torch.as_tensor(a, device=device) for a in arrays]
+    return dict(comfort_noise=[limbs.contiguous()],
+                generate_noise_with_overlap=t(seed, prev, prime),
+                render_tone=t(tone, amp, phases[0], phases[1]))
+
+
+def same_bits(out, ref):
+    """Every output equal in dtype, shape and bits (float32 as int32, so
+    that the sign of a zero counts)."""
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+    return len(out) == len(ref) and all(
+        o.dtype == r.dtype and o.shape == r.shape and torch.equal(bits(o), bits(r))
+        for o, r in zip(out, ref))
+
+
+GRAPH_CALLS = 10       # calls per CUDA graph in phase 3d's timing
+
+
+def graphed_ms(fn, reps=20):
+    """Device ms per fn() as the main path runs it, inside a CUDA graph:
+    GRAPH_CALLS calls captured into one graph, its replays timed by CUDA
+    events (an eager call of a ~0.01 ms kernel measures the host's launch
+    path instead)."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    return cuda_ms(graph.replay, reps) / GRAPH_CALLS
+
+
+def phase_sources(noise, synth, sources, device):
+    """Phase 3d: the dispatchers on card tensors (one sources launch each)
+    against their plain forms on the card, bit for bit, at KERNEL_C; at
+    the full width both timed inside CUDA graphs (and the eager call),
+    summed per IMBE step (comfort noise, LCG buffer) and per AMBE step
+    (and the tone), beside the bound."""
+    dispatch = dict(comfort_noise=noise.comfort_noise,
+                    generate_noise_with_overlap=noise.generate_noise_with_overlap,
+                    render_tone=synth.render_tone)
+    plain = dict(comfort_noise=noise.comfort_noise_reference,
+                 generate_noise_with_overlap=noise.generate_noise_with_overlap_reference,
+                 render_tone=synth.render_tone_reference)
+    for c in KERNEL_C:
+        inputs = sources_inputs(noise, c, device)
+        ms, plain_ms = {}, {}
+        for name, args in inputs.items():
+            before = sources.LAUNCHES
+            out = dispatch[name](*args)
+            torch.cuda.synchronize()
+            assert sources.LAUNCHES == before + 1, f"{name} C={c}: launches"
+            same = same_bits(out, plain[name](*args))
+            assert same, f"sources {name} C={c}: outputs differ from the plain form"
+            eager_ms = cuda_ms(lambda: dispatch[name](*args), 50)
+            before = sources.LAUNCHES
+            ms[name] = graphed_ms(lambda: dispatch[name](*args))
+            assert sources.LAUNCHES == before + GRAPH_CALLS, f"{name} C={c}: captured launches"
+            plain_ms[name] = graphed_ms(lambda: plain[name](*args))
+            print(f"kernel sources {name} C={c}: bit-equal to the plain form {same}; graphed: "
+                  f"kernel {ms[name]!r} ms, plain {plain_ms[name]!r} ms; an eager call "
+                  f"{eager_ms!r} ms")
+    # at the last (full) width, from these inputs. Bytes: comfort reads the
+    # limbs [3, C] int64 and two [160] int64 jump tables and writes the
+    # samples [160, C] f32 and new limbs [3, C] int64; the LCG buffer reads
+    # three [C] f32 and two [161] int64 tables and writes [256, C] f32 and
+    # two [C] f32; the tone reads two [C] int32, two [C] int64 and four
+    # [256] tables (int64, int64, bool, bool) and writes [160, C] f32 and
+    # two [C] int64. Operations: a precise sinf per sample of each active
+    # oscillator (one per active tone, two per dual one). The integer
+    # generator steps (a handful of INT32 instructions per sample) are left
+    # out: below the bytes' time at any C.
+    step1, step2, _, _ = synth._tone_tables(device)
+    tid = inputs["render_tone"][0].clamp(0, 255).long()
+    oscillators = int((step1[tid] != 0).sum().item() + (step2[tid] != 0).sum().item())
+    nbytes = dict(comfort_noise=c * (3 * 8 + 160 * 4 + 3 * 8) + 2 * 160 * 8,
+                  generate_noise_with_overlap=c * (3 * 4 + 256 * 4 + 2 * 4) + 2 * 161 * 8,
+                  render_tone=c * (2 * 4 + 2 * 8 + 160 * 4 + 2 * 8) + 256 * 18)
+    imbe = ("comfort_noise", "generate_noise_with_overlap")
+    b_imbe = bound(sum(nbytes[k] for k in imbe))
+    b_ambe = bound(sum(nbytes.values()), fp32_ops=160 * oscillators * COSF_OPS)
+    writes = dict(imbe=4 * c * (160 + 256), ambe=4 * c * (2 * 160 + 256))
+    per_step = {}
+    for step, names, b in (("imbe", imbe, b_imbe), ("ambe", tuple(ms), b_ambe)):
+        per_step[step] = (sum(ms[k] for k in names), sum(plain_ms[k] for k in names))
+        print(f"kernel sources per {step.upper()} step C={c}: kernel {per_step[step][0]!r} ms, "
+              f"plain {per_step[step][1]!r} ms, bound {b['bound_ms']!r} ms ({b['bound_by']}); "
+              f"the sample writes alone {writes[step] / HBM_BYTES_S * 1e3!r} ms; "
+              f"{per_step[step][0] / b['bound_ms']!r}x the bound [{card()}]")
+    return dict(max_abs_err=0.0, ms=per_step["ambe"][0], plain_ms=per_step["ambe"][1],
+                ms_imbe_step=per_step["imbe"][0], plain_ms_imbe_step=per_step["imbe"][1],
+                bound_ms_imbe_step=b_imbe["bound_ms"], **b_ambe)
+
+
 def check_outputs(name, vec, pcm, res, dbits=None):
     """Bit-exact counts/flags (and parameter bits), per-frame and int16 SNR."""
     from mbe_tpu_torch.ops.synth import float_to_short
@@ -429,7 +564,8 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
                        np.stack(dbits))
     launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
-                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
+                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
+                sources=S_PER_STEP[codec] * T)
     assert launches == want, f"{name}: kernel launches {launches} in {T} frames, want {want}"
     check_outputs(name, vec, pcm, res, dbits)
     return pcm, res, dbits, state
@@ -503,7 +639,8 @@ def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eag
                            np.stack(dbits))
     launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
-                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0)
+                soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
+                sources=S_PER_STEP[codec] * T)
     assert launches == want, f"{name} graphed: kernel launches {launches} in {T} replays"
     exact, worst = same_as_eager(name, (pcm, res, dbits, state), eager)
     print(f"golden {name} graphed ({'run_sequence' if sequence else 'CompiledStep'}): "
@@ -594,7 +731,8 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
     launches = counts(kernels)
     steps = 2 + reps * sum(SCALE_T)
     per_step = dict(voiced_sums=1, unvoiced_wola=1,
-                    soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0)
+                    soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0,
+                    sources=S_PER_STEP[codec])
     want = {k: per_step[k] * steps for k in kernels}
     assert launches == want, f"{path}: kernel launches {launches}, want {want}"
     peak = torch.cuda.max_memory_allocated(device) / 2**30
@@ -611,7 +749,8 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
 
 
 KERNEL_SYMBOLS = dict(voiced_sums="voiced_sums_kernel", soft_decode="soft_decode_kernel",
-                      unvoiced_wola="unvoiced_wola_kernel")
+                      unvoiced_wola="unvoiced_wola_kernel", comfort_noise="comfort_noise_kernel",
+                      lcg_buffer="lcg_buffer_kernel", tone_render="tone_render_kernel")
 PROFILE_STEPS = 4      # steps per profiled window in phase 5
 
 
@@ -666,7 +805,8 @@ def scale_path(pipeline, init_state, kernels, device, codec, soft):
         torch.cuda.synchronize()
 
     per_step = dict(voiced_sums=1.0, unvoiced_wola=1.0,
-                    soft_decode=float(B2_PER_SOFT_STEP[codec]) if soft else 0.0)
+                    soft_decode=float(B2_PER_SOFT_STEP[codec]) if soft else 0.0,
+                    comfort_noise=1.0, lcg_buffer=1.0, tone_render=float(ambe))
     for arm, run in (("eager", eager_run), ("graphed", graphed_run)):
         wall, n_events, busy, idle, symbols = profile_steps(
             run, PROFILE_STEPS, ROOT / "build" / "traces" / f"{codec}_{int(soft)}_{arm}")
@@ -787,7 +927,8 @@ def phase_api(api, pipeline, kernels, device):
             assert int(fsm["status"][0]) == 0
             worst = min(worst, snr_db(vec["pcm"][t], audio[0].cpu().numpy()))
         launches = counts(kernels)
-        assert launches == dict(voiced_sums=T, soft_decode=0, unvoiced_wola=T), \
+        assert launches == dict(voiced_sums=T, soft_decode=0, unvoiced_wola=T,
+                                sources=S_PER_STEP[codec] * T), \
             f"{fname}: kernel launches {launches} in {T} frames"
         print(f"api {fname} over fsm_{codec}: T={T} flags exact, worst frame "
               f"{float(worst)!r} dB, kernel launches {launches}")
@@ -808,7 +949,7 @@ def phase_api(api, pipeline, kernels, device):
             d_ref, res = getattr(api, f"decode_{name}_frame")(frame, rel)
             fused = counts(kernels)
             assert staged["voiced_sums"] == staged["unvoiced_wola"] == fused["voiced_sums"] \
-                == fused["unvoiced_wola"] == 0
+                == fused["unvoiced_wola"] == staged["sources"] == fused["sources"] == 0
             staged, fused = staged["soft_decode"], fused["soft_decode"]
             same = (torch.equal(d, d_ref) and torch.equal(c0, res["c0_errors"])
                     and torch.equal(prot, res["protected_errors"])
@@ -857,7 +998,8 @@ def stream_ticks(streaming, kernels, device, codec, packed, direct, seeds, unpac
     # the ticks' replays and, on the card, the one eager warm-up step
     # before the decoder captures its tick at the first push
     steps = STREAM_TICKS + (device.type == "cuda")
-    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
+    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
+                            sources=S_PER_STEP[codec] * steps), launches
     assert len(got) == STREAM_TICKS and len(dec._graphs) == (device.type == "cuda")
     for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
         np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {codec} {unpack} t={t}")
@@ -934,7 +1076,8 @@ def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
     fin, pcm_b = run(loaded, CKPT_STEPS, 2 * CKPT_STEPS)
     launches = counts(kernels)
     steps = 4 * CKPT_STEPS
-    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps), launches
+    assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
+                            sources=S_PER_STEP["imbe7200"] * steps), launches
     same_pcm = all(torch.equal(a, b) for a, b in zip(pcm_ref, pcm_a + pcm_b))
     same_state = all(torch.equal(a, b) for a, b in zip(leaves(ref), leaves(fin)))
     print(f"checkpoint imbe7200 hard C={SCALE_C}: {CKPT_STEPS} steps, save, load(cuda), "
@@ -1025,7 +1168,8 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
             # per shard a replay per frame and, on the card, the one eager
             # warm-up step before its capture
             steps = len(mesh) * (SHARD_T + (device.type == "cuda"))
-            want = dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps)
+            want = dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
+                        sources=S_PER_STEP[codec] * steps)
             assert launches == want, f"{name} {codec}: kernel launches {launches}, want {want}"
             diff = (float_to_short_of(pcm).int() - float_to_short_of(ref_pcm).int()).abs()
             ints = all(torch.equal(res[k], ref_res[k]) for k in ref_res)
@@ -1062,6 +1206,7 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
                                 iters=24, short_iters=4)
     launches = counts(kernels)
     assert launches["voiced_sums"] == launches["unvoiced_wola"] > 24
+    assert launches["sources"] == S_PER_STEP["imbe7200"] * launches["voiced_sums"]
     print(f"device_time one graphed imbe7200 hard step C={SCALE_C}: {sec * 1e3!r} ms per "
           f"step, beside phase 5's graphed slope {hard_slope_ms!r} ms/frame-step (run_sequence: "
           f"frame copy in, replay, PCM and results copied out) [{card()}]")
@@ -1122,7 +1267,8 @@ def main():
     from mbe_tpu_torch.parallel import sharding, streaming
     from mbe_tpu_torch.utils import checkpoint, profiling
     from mbe_tpu_torch.ops import ecc
-    from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
+    from mbe_tpu_torch.ops import noise, synth
+    from mbe_tpu_torch.ops.cuda import softecc, sources, unvoiced, voiced
 
     device = torch.device("cuda", 0)
     card_line = card()
@@ -1130,7 +1276,8 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced)
+    kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced,
+                   sources=sources)
     t_start = time.perf_counter()
     seconds = {}
 
@@ -1162,6 +1309,7 @@ def main():
     k_voiced = phase("3 voiced_sums", phase_kernel, voiced, device)
     k_soft = phase("3b soft_decode", phase_softecc, ecc, softecc, device)
     k_unvoiced = phase("3c unvoiced_wola", phase_unvoiced, unvoiced, device)
+    k_sources = phase("3d sources", phase_sources, noise, synth, sources, device)
     phase("4 goldens", phase_goldens, pipeline, init_state, kernels, device)
     paths = phase("5 full width", scale)
     phase("6 api", phase_api, api, pipeline, kernels, device)
@@ -1186,7 +1334,13 @@ def main():
         {"name": "unvoiced_wola", "route": "cuda",
          "source": "mbe_tpu_torch/csrc/unvoiced.cu",
          "replaces": "mbe_tpu/ops/pallas/unvoiced.py:174",
-         "launches": paths["ambe2450", False]["launches"]["unvoiced_wola"], **k_unvoiced}]}))
+         "launches": paths["ambe2450", False]["launches"]["unvoiced_wola"], **k_unvoiced},
+        {"name": "sources", "route": "cuda",
+         "source": "mbe_tpu_torch/csrc/sources.cu",
+         "replaces": "no TPU kernel: plain PyTorch, mbe_tpu_torch/ops/noise.py:comfort_noise_"
+                     "reference, generate_noise_with_overlap_reference, ops/synth.py:"
+                     "render_tone_reference",
+         "launches": paths["ambe2450", False]["launches"]["sources"], **k_sources}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,11 @@ kept as three 16-bit limbs [3, C]. The limbs are int64 tensors holding
 uint32 values (torch has no arithmetic on uint32); every step masks
 explicitly, and the 16-bit limb scheme stays because a single 48-bit
 product would overflow int64.
+
+comfort_noise and generate_noise_with_overlap run their plain forms
+(*_reference) for CPU tensors and the hand-written kernel of
+ops/cuda/sources.py for CUDA tensors (any other device raises there); the
+plain forms are the kernel's oracle.
 """
 
 from functools import lru_cache
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 
 from ..tables import T
+from .cuda import sources
 
 LCG_M = 53125
 LCG_DEFAULT_SEED = 3147.0
@@ -54,9 +60,22 @@ def lcg_block(seed_int, count=160):
 
 
 def generate_noise_with_overlap(noise_seed, noise_prev_seed, prime_value):
-    """mbe_generate_noise_with_overlap (mbe_unvoiced_fft.c:305-341) with
-    the 96-sample overlap re-expanded from the seed that produced it
-    (samples 64..159 of `noise_prev_seed`; < 0 means zeros).
+    """mbe_generate_noise_with_overlap (mbe_unvoiced_fft.c:305-341): the
+    plain form below for CPU tensors, the kernel of ops/cuda/sources.py
+    (bit for bit the same) for CUDA tensors, which are three [C] f32.
+
+    Returns (buffer [256, C] f32, new_seed [C] f32, new_prev_seed [C] f32).
+    """
+    if noise_seed.device.type == "cpu":
+        return generate_noise_with_overlap_reference(noise_seed, noise_prev_seed, prime_value)
+    return sources.lcg_buffer(noise_seed, noise_prev_seed, prime_value,
+                              *_lcg_tables(noise_seed.device))
+
+
+def generate_noise_with_overlap_reference(noise_seed, noise_prev_seed, prime_value):
+    """The plain form of generate_noise_with_overlap, with the 96-sample
+    overlap re-expanded from the seed that produced it (samples 64..159 of
+    `noise_prev_seed`; < 0 means zeros).
 
     Returns (buffer [256, C] f32, new_seed [C] f32, new_prev_seed [C] f32);
     cold-start lanes (seed < 0) emit zeros and prime the seed.
@@ -112,12 +131,37 @@ def _java_tables(device):
             torch.as_tensor(B, device=device)[:, :, None])  # [160, 3, 1]
 
 
+@lru_cache(maxsize=None)
+def _java_jumps(device):
+    """(A, B) [160] int64 on `device`: the state after k + 1 steps of
+    java.util.Random is A[k]*s + B[k] mod 2^48 (_java_jump_tables's limbs
+    joined), for the kernel."""
+    shifts = np.array([0, 16, 32], np.int64)
+    return tuple(torch.as_tensor((x << shifts).sum(axis=1), device=device)
+                 for x in _java_jump_tables(160))
+
+
 def comfort_noise(limbs, n=160):
     """160 comfort-noise samples + advanced RNG state
-    (mbe_synthesizeComfortNoisef, mbe_adaptive.c:117-131), all samples at
-    once from the affine jumps with exact 16-bit-limb carries (the scheme
-    of mbe_tpu.ops.noise.comfort_noise; int64 partial sums never exceed
-    2^35, and the masks reproduce the uint32 wraparound).
+    (mbe_synthesizeComfortNoisef, mbe_adaptive.c:117-131): the plain form
+    below for CPU tensors, the kernel of ops/cuda/sources.py (bit for bit
+    the same) for CUDA tensors.
+
+    Args: limbs [3, C] int64 Java-Random state.
+    Returns: (samples [n, C] f32, new_limbs [3, C] int64).
+    """
+    if limbs.device.type == "cpu":
+        return comfort_noise_reference(limbs, n)
+    # a shard of a state (a column slice) is strided
+    return sources.comfort_noise(limbs.contiguous(), n, *_java_jumps(limbs.device),
+                                 COMFORT_GAIN)
+
+
+def comfort_noise_reference(limbs, n=160):
+    """The plain form of comfort_noise: all samples at once from the affine
+    jumps with exact 16-bit-limb carries (the scheme of
+    mbe_tpu.ops.noise.comfort_noise; int64 partial sums never exceed 2^35,
+    and the masks reproduce the uint32 wraparound).
 
     Args: limbs [3, C] int64 Java-Random state.
     Returns: (samples [n, C] f32, new_limbs [3, C] int64).

@@ -3,8 +3,9 @@ FFT + WOLA, tones, clipping (port of mbe_tpu.ops.synth; mbelib.c:691-1105,
 mbe_unvoiced_fft.c:714-761).
 
 Band arrays are [57, C], buffers [256, C], audio [160, C]. On the GPU the
-voiced bank runs in the hand-written kernel of ops/cuda/voiced.py and the
-unvoiced stage in that of ops/cuda/unvoiced.py.
+voiced bank runs in the hand-written kernel of ops/cuda/voiced.py, the
+unvoiced stage in that of ops/cuda/unvoiced.py and the tone in that of
+ops/cuda/sources.py.
 """
 
 from functools import lru_cache
@@ -14,7 +15,7 @@ import torch
 
 from ..tables import T, table
 from .bits import field, lookup
-from .cuda import unvoiced
+from .cuda import sources, unvoiced
 from .cuda.voiced import voiced_sums
 
 FRAME = 160
@@ -23,6 +24,8 @@ PI = float(np.float32(np.pi))
 WHITE_NOISE_SCALAR = float(np.float32(2.0 * np.pi / 53125.0))
 SOFT_CLIP = float(np.float32((32767.0 * 0.95) / 7.0))
 MAX_SHORT = float(np.float32(32767.0 * 0.95))
+TONE_RAD = float(np.float32(2.0 * np.pi / 4294967296.0))  # radians per uint32 phase step
+HALF_PI = float(np.float32(np.pi / 2.0))
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +182,18 @@ def parse_tone_fields(ambe_d):
 
 
 def render_tone(tone_id, amplitude_id, swn, tone_phase):
-    """mbe_renderTonef (mbelib.c:707-736), batched with exact uint32 phases.
+    """mbe_renderTonef (mbelib.c:707-736): the plain form below for CPU
+    tensors, the kernel of ops/cuda/sources.py (bit for bit the same) for
+    CUDA tensors, which take tone_id and amplitude_id as [C] int32.
+    Returns (samples [160, C], swn', tonePhase')."""
+    if tone_id.device.type == "cpu":
+        return render_tone_reference(tone_id, amplitude_id, swn, tone_phase)
+    return sources.render_tone(tone_id, amplitude_id, swn, tone_phase,
+                               _tone_tables(tone_id.device), SOFT_CLIP, TONE_RAD, HALF_PI)
+
+
+def render_tone_reference(tone_id, amplitude_id, swn, tone_phase):
+    """The plain form of render_tone, batched with exact uint32 phases.
 
     The phase of sample n is (phase0 + step*(n+1)) mod 2^32 in int64, as
     the reference's accumulator; the steps are gathered by tone id.
@@ -193,12 +207,10 @@ def render_tone(tone_id, amplitude_id, swn, tone_phase):
     gain = (torch.clamp(amplitude_id, min=0).to(torch.float32) / 127.0) * SOFT_CLIP
 
     nn = torch.arange(1, FRAME + 1, device=tone_id.device, dtype=torch.int64)[:, None]
-    rad = float(np.float32(2.0 * np.pi / 4294967296.0))
-    half_pi = float(np.float32(np.pi / 2.0))
 
     def osc(phase0, step):
         ph = (phase0[None, :] + step[None, :] * nn) & 0xFFFFFFFF  # [160, C]
-        return torch.sin(ph.to(torch.float32) * rad - half_pi)
+        return torch.sin(ph.to(torch.float32) * TONE_RAD - HALF_PI)
 
     g1 = torch.where(active, torch.where(dual, 0.5 * gain, gain), 0.0)[None, :]
     g2 = torch.where(dual, 0.5 * gain, 0.0)[None, :]

@@ -23,10 +23,10 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda import softecc, unvoiced, voiced
+from ..ops.cuda import softecc, sources, unvoiced, voiced
 from .spans import span
 
-KERNELS = (voiced, softecc, unvoiced)
+KERNELS = (voiced, softecc, unvoiced, sources)
 
 
 def leaves(tree):

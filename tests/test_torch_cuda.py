@@ -1,6 +1,6 @@
-"""The port on the card: the voiced, soft-decode and unvoiced kernels
-against their plain versions, the golden vectors through the pipeline and
-the public API with the kernels in the loop, checkpoints, the streaming
+"""The port on the card: the voiced, soft-decode, unvoiced and sources
+kernels against their plain versions, the golden vectors through the
+pipeline and the public API with the kernels in the loop, checkpoints, the streaming
 decoder (and the C host shim), the compiled step (a CUDA graph replay,
 bit-exact against the eager step), channel sharding, the two-process job,
 the profiling helpers and the tracing (region marks in traced replays and
@@ -21,8 +21,8 @@ import torch
 
 from mbe_tpu_torch import pipeline
 from mbe_tpu_torch.models import state as st
-from mbe_tpu_torch.ops import ecc, synth
-from mbe_tpu_torch.ops.cuda import softecc, unvoiced, voiced
+from mbe_tpu_torch.ops import ecc, noise, synth
+from mbe_tpu_torch.ops.cuda import softecc, sources, unvoiced, voiced
 
 torch.set_num_threads(1)
 
@@ -241,6 +241,213 @@ def test_unvoiced_kernel_rejects_bad_inputs(cuda_device):
                           (5, torch.empty((64, 256), device=cuda_device).T, "contiguous")):
         with pytest.raises(ValueError, match=match):
             unvoiced.unvoiced_wola(*args[:i], bad, *args[i + 1:])
+
+
+# --- the noise and tone sources (csrc/sources.cu) -----------------------------
+
+SOURCES_C = [1, 33, 4097, 32768]
+
+
+def _comfort_limbs(c, device):
+    """Java-Random limbs [3, C] from seeds 0, 1, 0xFFFFFFFF and random ones
+    (java_random_init), random 48-bit states in every fifth lane from the
+    fourth, and limbs whose 16-bit parts are all 0xFFFF in every fifth
+    lane from the fifth."""
+    rng = np.random.default_rng(c + 5)
+    seeds = rng.integers(0, 1 << 32, c, dtype=np.uint64).astype(np.int64)
+    seeds[:3] = [0, 1, 0xFFFFFFFF][:c]
+    limbs = noise.java_random_init(torch.as_tensor(seeds, device=device))
+    limbs[:, 3::5] = torch.as_tensor(rng.integers(0, 1 << 16, (3, len(range(3, c, 5)))),
+                                     device=device)
+    limbs[:, 4::5] = 0xFFFF
+    return limbs.contiguous()
+
+
+def _lcg_inputs(c, device):
+    """noise_seed, noise_prev_seed, prime [C] f32: seeds < 0 (cold), 0,
+    53124, random states and fractional values; previous seeds < 0 on a
+    third of the lanes; fractional primes."""
+    rng = np.random.default_rng(c + 7)
+    seed = rng.integers(0, 53125, c).astype(np.float32)
+    pick = rng.integers(0, 6, c)
+    seed = np.select([pick == 0, pick == 1, pick == 2, pick == 3],
+                     [np.float32(-1.0), np.float32(0.0), np.float32(53124.0),
+                      seed + np.float32(0.5)], seed).astype(np.float32)
+    seed[:2] = [-0.25, 53124.0][:c]
+    prev = rng.integers(0, 53125, c).astype(np.float32)
+    prev[rng.integers(0, 3, c) == 0] = -1.0
+    prime = (rng.integers(0, 53125, c) + rng.uniform(0, 1, c)).astype(np.float32)
+    return [torch.as_tensor(a, device=device) for a in (seed, prev, prime)]
+
+
+def _tone_inputs(c, device):
+    """tone_id and amplitude_id [C] int32 and swn, tonePhase [C] int64: the
+    tone ids cycle through 0..255 (active, dual and inactive ids) with a
+    few out of range; amplitudes -1, 0, 127 and random; phases random, 0
+    and near 2^32 - 1."""
+    rng = np.random.default_rng(c + 11)
+    tone = (np.arange(c) % 256).astype(np.int32)
+    tone[7::97] = -3
+    tone[11::89] = 300
+    amp = rng.integers(-1, 128, c).astype(np.int32)
+    amp[:3] = [-1, 0, 127][:c]
+    phases = rng.integers(0, 1 << 32, (2, c), dtype=np.uint64).astype(np.int64)
+    phases[:, 1::3] = (1 << 32) - 1 - rng.integers(0, 4096, (2, len(range(1, c, 3))))
+    phases[:, 2::7] = 0
+    return [torch.as_tensor(a, device=device) for a in (tone, amp, phases[0], phases[1])]
+
+
+def _assert_equal_outputs(out, ref):
+    """Equal dtypes, shapes and bits: float32 outputs are compared as
+    int32, so that the sign of a zero counts."""
+    assert len(out) == len(ref)
+    for i, (o, r) in enumerate(zip(out, ref)):
+        assert o.dtype == r.dtype and o.shape == r.shape, i
+        if o.dtype == torch.float32:
+            o, r = o.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(o, r), (i, (o != r).nonzero()[:8].tolist())
+
+
+SOURCES_DISPATCH = {"comfort_noise": noise.comfort_noise,
+                    "generate_noise_with_overlap": noise.generate_noise_with_overlap,
+                    "render_tone": synth.render_tone}
+SOURCES_PLAIN = {"comfort_noise": noise.comfort_noise_reference,
+                 "generate_noise_with_overlap": noise.generate_noise_with_overlap_reference,
+                 "render_tone": synth.render_tone_reference}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", SOURCES_C)
+@pytest.mark.parametrize("entry", ["comfort_noise", "generate_noise_with_overlap",
+                                   "render_tone"])
+def test_sources_kernel_matches_plain(cuda_device, entry, c):
+    """Each dispatcher (noise.comfort_noise, noise.generate_noise_with_overlap,
+    synth.render_tone) on card tensors, which launches the sources kernel
+    once, against its plain form on the card: every output bit-equal."""
+    args = {"comfort_noise": lambda: [_comfort_limbs(c, cuda_device)],
+            "generate_noise_with_overlap": lambda: _lcg_inputs(c, cuda_device),
+            "render_tone": lambda: _tone_inputs(c, cuda_device)}[entry]()
+    before = sources.LAUNCHES
+    out = SOURCES_DISPATCH[entry](*args)
+    torch.cuda.synchronize()
+    assert sources.LAUNCHES == before + 1
+    _assert_equal_outputs(out, SOURCES_PLAIN[entry](*args))
+
+
+@pytest.mark.cuda
+def test_sources_kernel_chains_frames(cuda_device):
+    """Twenty frames of each generator chained through its own state (the
+    kernel's state in, the kernel's state out) equal the plain chain."""
+    limbs = _comfort_limbs(4097, cuda_device)
+    seed, prev, prime = _lcg_inputs(4097, cuda_device)
+    tone, amp, swn, tp = _tone_inputs(4097, cuda_device)
+    k_state = (limbs, seed, prev, swn, tp)
+    p_state = k_state
+    for _ in range(20):
+        outs = []
+        for comfort, lcg, tone_fn, st_ in (
+                (*SOURCES_DISPATCH.values(), k_state), (*SOURCES_PLAIN.values(), p_state)):
+            cn, li = comfort(st_[0])
+            buf, s2, p2 = lcg(st_[1], st_[2], prime)
+            ts, w2, t2 = tone_fn(tone, amp, st_[3], st_[4])
+            outs.append(((cn, buf, ts), (li, s2, p2, w2, t2)))
+        _assert_equal_outputs(outs[0][0], outs[1][0])
+        _assert_equal_outputs(outs[0][1], outs[1][1])
+        k_state, p_state = outs[0][1], outs[1][1]
+
+
+@pytest.mark.cuda
+def test_sources_kernel_rejects_bad_inputs(cuda_device):
+    limbs = _comfort_limbs(64, cuda_device)
+    lcg = _lcg_inputs(64, cuda_device)
+    tone = _tone_inputs(64, cuda_device)
+    jumps = (*noise._java_jumps(cuda_device), noise.COMFORT_GAIN)
+    lcg_tables = noise._lcg_tables(cuda_device)
+    tone_tables = (synth._tone_tables(cuda_device), synth.SOFT_CLIP, synth.TONE_RAD,
+                   synth.HALF_PI)
+    with pytest.raises(ValueError, match="int64"):
+        sources.comfort_noise(limbs.int(), 160, *jumps)
+    with pytest.raises(ValueError, match="contiguous"):
+        sources.comfort_noise(torch.empty((64, 3), dtype=torch.int64, device=cuda_device).T,
+                              160, *jumps)
+    with pytest.raises(ValueError, match="n must"):
+        sources.comfort_noise(limbs, 161, *jumps)
+    with pytest.raises(ValueError, match="float32"):
+        sources.lcg_buffer(lcg[0], lcg[1].double(), lcg[2], *lcg_tables)
+    with pytest.raises(ValueError, match="cuda"):
+        sources.lcg_buffer(lcg[0], lcg[1], lcg[2].cpu(), *lcg_tables)
+    with pytest.raises(ValueError, match="int32"):
+        sources.render_tone(tone[0].long(), *tone[1:], *tone_tables)
+    with pytest.raises(ValueError, match=r"\(64,\)"):
+        sources.render_tone(tone[0], tone[1], tone[2][:32], tone[3], *tone_tables)
+
+
+def _random_frames(codec, T, C, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, 2, (T, C, *pipeline.FRAME_SHAPES[codec])),
+                           dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,tones,nodes", [("imbe7200", True, 2), ("ambe2450", True, 3),
+                                               ("ambe2450", False, 2)],
+                         ids=["imbe7200", "ambe2450", "ambe2450-notones"])
+def test_sources_nodes_per_captured_step(cuda_device, codec, tones, nodes):
+    """A CompiledStep's graph holds the sources kernel's launches: comfort
+    noise and the LCG buffer in every codec, the tone where tones are
+    rendered; each replay advances LAUNCHES by as many."""
+    from mbe_tpu_torch.utils import graphs
+    from mbe_tpu_torch.utils.config import DecoderConfig
+    C = 1000
+    config = DecoderConfig(codec=codec, tones_enabled=tones)
+    compiled = pipeline.CompiledStep(
+        codec, st.init_state(C, rng_seed=np.arange(1, C + 1, dtype=np.uint32),
+                             carry_enh=codec.startswith("ambe"), device=cuda_device),
+        config=config)
+    assert dict(zip(graphs.KERNELS, compiled._graph.launches))[sources] == nodes
+    frames = _random_frames(codec, 3, C, 3)
+    before = sources.LAUNCHES
+    for t in range(3):
+        compiled(frames[t])
+    assert sources.LAUNCHES - before == 3 * nodes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["imbe7200", "ambe2450"])
+def test_sources_run_sequence_equals_plain_forms(cuda_device, codec, monkeypatch):
+    """50 frames of random bits (erasures, repeats, mutes, tones) through
+    run_sequence on the card: the state, result words and PCM equal those
+    of the same code with the plain forms forced in place of the kernel."""
+    C, T = 4097, 50
+    frames = _random_frames(codec, T, C, 50)
+    seeds = np.random.default_rng(51).integers(0, 1 << 32, C, dtype=np.uint64).astype(np.uint32)
+
+    def run():
+        """run_sequence from a fresh capture; the kernel's launches in it."""
+        pipeline.clear_compiled()
+
+        def init():
+            return st.init_state(C, rng_seed=seeds, carry_enh=codec.startswith("ambe"),
+                                 device=cuda_device)
+
+        pipeline.compiled_step(codec, init())  # capture before counting
+        before = sources.LAUNCHES
+        return pipeline.run_sequence(codec, frames, init()), sources.LAUNCHES - before
+
+    kernel, launches = run()
+    assert launches == T * (3 if codec == "ambe2450" else 2)
+    with monkeypatch.context() as m:
+        m.setattr(noise, "comfort_noise", noise.comfort_noise_reference)
+        m.setattr(noise, "generate_noise_with_overlap",
+                  noise.generate_noise_with_overlap_reference)
+        m.setattr(synth, "render_tone", synth.render_tone_reference)
+        plain, launches = run()
+        assert launches == 0
+    pipeline.clear_compiled()
+    assert torch.equal(kernel[1], plain[1])
+    for k in plain[2]:
+        assert torch.equal(kernel[2][k], plain[2][k]), k
+    assert all(torch.equal(a, b) for a, b in zip(_leaves(kernel[0]), _leaves(plain[0])))
 
 
 # --- the public API, checkpoints and streaming on the card ---------------------
