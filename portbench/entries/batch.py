@@ -30,8 +30,7 @@ def setup(run, pool):
                            device=run.device)
     run.sample_dev = torch.as_tensor(run.sample, device=run.device)
     run.acc = torch.zeros((), dtype=torch.int64, device=run.device)
-    run.harness_bytes = sum(x.numel() * x.element_size()
-                            for x in (run.frames, run.rel, run.acc) if x is not None)
+    run.hold(run.frames, run.rel, run.acc)
     run.ticks = 0
     run.steps_per_call = run.frames.shape[0]
     for _ in range(int(run.traffic["warmup_chunks"])):
@@ -46,12 +45,13 @@ def chunk(run):
         run.state, pcm, res = pipeline.run_sequence(run.codec, run.frames, run.state, run.rel,
                                                     int16=True)
     with run.span("consume"):
+        run.took(pcm, *res.values())
         run.acc += pcm.sum(dtype=torch.int64)
         kept = (pcm.index_select(1, run.sample_dev),
                 torch.stack([res[k].index_select(1, run.sample_dev) for k in RESULT_KEYS], -1))
         run.record(*kept)
     # the sample's record is the harness's, not the program's memory
-    run.harness_bytes += sum(x.numel() * x.element_size() for x in kept)
+    run.hold(*kept)
     run.ticks += pcm.shape[0]
 
 

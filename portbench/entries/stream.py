@@ -43,8 +43,10 @@ def push(run):
 
 
 def consume(run, outs):
-    """The consumer: keep the checked sample of each tick received."""
+    """The consumer: keep the checked sample of each tick received (host
+    arrays, made on the decoder's device)."""
     for pcm, res in outs:
+        run.took(run.decoder._device)
         run.record(pcm[run.sample], np.stack([res[k][run.sample] for k in RESULT_KEYS], -1))
         run.counters.setdefault("host_bytes_out", pcm.nbytes + sum(res[k].nbytes
                                                                    for k in RESULT_KEYS))

@@ -6,17 +6,18 @@ the whole run (set-up's warm-up included). The counters live in the
 program's module, so they outlast the entry's `finish`.
 
 `idle_in_ms(run, name)`: from the traced slice, the device-idle time that
-falls inside the program's `name` ranges, per traced step. The harness's
-parsed trace keeps only its own span names, and a profiler's trace can be
-exported once, so this reads the stopped profiler's (`run._prof_done`)
-own events (`events()`): the "slice" annotation, the program's ranges and
-the device operations, all from that one source, on one clock.
+falls inside the program's `name` ranges, per traced step, each device's
+own, the mean over the run's devices. The harness's parsed trace keeps
+only its own span names, and a profiler's trace can be exported once, so
+this reads the stopped profiler's (`run._prof_done`) own events
+(`events()`): the "slice" annotation, the program's ranges and the device
+operations, all from that one source, on one clock.
 
 Either reads None where the program has no such span (a program older
 than its spans).
 """
 
-from portbench.trace_reader import _union
+from portbench.trace_reader import _union, mean_over_devices
 
 
 def mean_ms(name):
@@ -44,33 +45,36 @@ def _intersection_us(a, b):
 
 
 def events_of(prof):
-    """(kind, name, start_us, end_us) of every event a stopped
+    """(kind, name, start_us, end_us, device) of every event a stopped
     torch.profiler recorded (its `events()`, on one clock): kind "device"
-    for an operation on the device (a kernel, copy or set), "host" for the
-    rest, annotations included. The device's projections of host
-    annotations carry their annotation's name and are left out."""
+    for an operation on a device (a kernel, copy or set), with the device's
+    index, "host" for the rest, annotations included, with None. The
+    devices' projections of host annotations carry their annotation's name
+    and are left out."""
     from torch.autograd import DeviceType
     events = prof.events()
     host_names = {e.name for e in events if e.device_type == DeviceType.CPU}
     out = []
     for e in events:
         if e.device_type == DeviceType.CPU:
-            kind = "host"
+            kind, device = "host", None
         elif e.name in host_names:
             continue
         else:
-            kind = "device"
-        out.append((kind, e.name, float(e.time_range.start), float(e.time_range.end)))
+            kind, device = "device", e.device_index
+        out.append((kind, e.name, float(e.time_range.start), float(e.time_range.end), device))
     return out
 
 
-def idle_in(events, name):
-    """Device-idle us inside `name` ranges over the "slice" annotation, from
-    `events` (events_of's tuples), or None without such a range."""
+def idle_in(events, name, device):
+    """Idle us of `device` (an index) inside `name` ranges over the "slice"
+    annotation, from `events` (events_of's tuples), or None without such a
+    range."""
     window, ops, ranges = None, [], []
-    for kind, ev_name, start, end in events:
+    for kind, ev_name, start, end, ev_device in events:
         if kind == "device":
-            ops.append((start, end))
+            if ev_device == device:
+                ops.append((start, end))
         elif ev_name == "slice":
             window = (start, end)
         elif ev_name == name:
@@ -90,9 +94,13 @@ def idle_in(events, name):
 
 def idle_in_ms(run, name):
     """Device-idle ms per traced step inside the program's `name` ranges,
-    or None."""
+    the mean over the run's devices, or None."""
     prof = getattr(run, "_prof_done", None)
-    if prof is None or run.trace is None or not run.trace["steps"]:
+    if prof is None or run.trace is None:
         return None
-    us = idle_in(events_of(prof), name)
-    return None if us is None else 1e-3 * us / run.trace["steps"]
+    events = events_of(prof)
+
+    def one(_, device):
+        us = idle_in(events, name, device["index"])
+        return None if us is None else 1e-3 * us / run.trace["steps"]
+    return mean_over_devices(run.trace, one)

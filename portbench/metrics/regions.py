@@ -13,13 +13,15 @@ stream's copies, a sequence's per-frame copies. A program without marks
 
 import re
 
+from portbench.trace_reader import mean_over_devices
+
 MARK = re.compile(r"\bmbe_region_([a-z_]+)\b")
 OUTSIDE = "outside"
 
 
 def region_seconds(ops):
-    """region -> device seconds of `ops` ((name, start_us, end_us)), or None
-    when no op is a mark."""
+    """region -> device seconds of one device's `ops` ((name, start_us,
+    end_us)), or None when no op is a mark."""
     totals, region, marked = {}, OUTSIDE, False
     for name, start, end in sorted(ops, key=lambda op: op[1]):
         m = MARK.search(name)
@@ -32,11 +34,9 @@ def region_seconds(ops):
 
 def busy_ms(run, region):
     """Device-busy ms per traced step (a replay in the batch cells, a tick
-    in the stream cell) in `region`, or None."""
-    t = run.trace
-    if t is None or not t["steps"]:
-        return None
-    totals = region_seconds(t["ops"])
-    if totals is None:
-        return None
-    return 1e3 * totals.get(region, 0.0) / t["steps"]
+    in the stream cell) in `region`, the mean over the run's devices, or
+    None."""
+    def one(_, device):
+        totals = region_seconds(device["ops"])
+        return None if totals is None else 1e3 * totals.get(region, 0.0) / run.trace["steps"]
+    return mean_over_devices(run.trace, one)

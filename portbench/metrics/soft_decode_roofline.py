@@ -8,4 +8,4 @@ from portbench.metrics.roofline import share
 def read(run):
     if not run.soft:
         return None
-    return share(run, b2.SYMBOL, b2.work(run.codec, run.channels))
+    return share(run, b2.SYMBOL, lambda channels: b2.work(run.codec, channels))

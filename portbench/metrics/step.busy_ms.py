@@ -1,9 +1,11 @@
 """Device-busy ms per step (a graph replay in the batch cells, a tick in
-the stream cell), from the traced slice (compiled step)."""
+the stream cell), from the traced slice (compiled step); each device's
+own, the mean over the run's devices."""
+
+from portbench.trace_reader import mean_over_devices
 
 
 def read(run):
-    t = run.trace
-    if t is None or not t["steps"] or t["busy_s"] <= 0:
-        return None
-    return 1e3 * t["busy_s"] / t["steps"]
+    def one(_, device):
+        return 1e3 * device["busy_s"] / run.trace["steps"] if device["busy_s"] > 0 else None
+    return mean_over_devices(run.trace, one)

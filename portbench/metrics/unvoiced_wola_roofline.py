@@ -5,4 +5,4 @@ from portbench.metrics.roofline import share
 
 
 def read(run):
-    return share(run, b3.SYMBOL, b3.work(run.channels))
+    return share(run, b3.SYMBOL, b3.work)

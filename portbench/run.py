@@ -23,9 +23,19 @@ reader in metrics/<name>.py. A run
    its per-layer metrics, the device's busy and traced seconds and the
    breakdown.
 
+A cell of `chips: N` runs on cuda:0 .. cuda:N-1 (the run's `devices`;
+`device`, the first, is where the existing entries put everything). Each
+device is measured on its own: its memory peak, the harness's bytes on it,
+whether outputs the consumer took came from it, and under --trace 1 its
+operations in the traced slice. `count` is the number of devices that
+ran the program: those whose reading fails none of the conditions in
+`unmet`.
+
 It exits non-zero, and prints no result, without a CUDA device (or with
-fewer than the cell asks for), without the program, or when jax, jaxlib,
-flax or mbe_tpu (top-level names, compared whole) are loaded.
+fewer than the cell asks for), when the program used fewer devices than
+the cell asks for or devices of different kinds, without the program, or
+when jax, jaxlib, flax or mbe_tpu (top-level names, compared whole) are
+loaded.
 """
 
 import time
@@ -82,22 +92,25 @@ def cell_of(bench, workload):
 
 
 class Run:
-    """What a run knows: its arguments, configuration and traffic, the
-    pool, the sample of channels checked, and what the window recorded
-    (counters, the traced slice). Entries and metric readers read and
-    write it."""
+    """What a run knows: its arguments, configuration and traffic, its
+    devices, the pool, the sample of channels checked, and what the window
+    recorded (counters, the traced slice, the devices outputs came from).
+    Entries and metric readers read and write it."""
 
-    def __init__(self, args, cell, config, traffic, device, torch):
+    def __init__(self, args, cell, config, traffic, devices, torch):
         self.args, self.cell, self.config, self.traffic = args, cell, config, traffic
         self.torch = torch
-        self.device = torch.device(device)
+        self.devices = [torch.device(d) for d in devices]
+        self.distinct = list(dict.fromkeys(self.devices))
+        self.device = self.devices[0]
         self.cuda = self.device.type == "cuda"
         self.codec = config["codec"]
         self.soft = bool(config["soft"])
         self.channels = int(traffic.get("channels", config["channels"]))
         self.counters = {}       # name -> number, read by metric readers
         self.trace = None        # the traced slice (read_trace), with --trace 1
-        self.harness_bytes = 0   # device bytes of the harness's own buffers
+        self.harness_bytes = {}  # device -> bytes of the harness's own buffers there
+        self.output_devices = set()  # devices of the outputs the consumer took (took)
         self.out_pcm, self.out_words = [], []   # the sample's outputs per tick
         self.steps_per_call = 1  # compiled-step replays per step of the window's loop
         self._prof = None
@@ -105,8 +118,24 @@ class Run:
         self._prof_steps = 0
 
     def sync(self):
-        if self.cuda:
-            self.torch.cuda.synchronize(self.device)
+        for d in self.distinct:
+            if d.type == "cuda":
+                self.torch.cuda.synchronize(d)
+
+    def hold(self, *tensors):
+        """Count `tensors` (None skipped) as the harness's own buffers, on
+        the device where each lives: their bytes are not the program's
+        memory."""
+        for x in tensors:
+            if x is not None:
+                self.harness_bytes[x.device] = (self.harness_bytes.get(x.device, 0)
+                                                + x.numel() * x.element_size())
+
+    def took(self, *outputs):
+        """Record the device of each output the consumer takes: a tensor,
+        before any copy between devices, or the device itself."""
+        for x in outputs:
+            self.output_devices.add(x.device if isinstance(x, self.torch.Tensor) else x)
 
     @contextlib.contextmanager
     def span(self, name):
@@ -176,7 +205,8 @@ class Run:
                 events = json.load(f)
         from portbench import trace_reader
         self.trace = trace_reader.read_trace(events, self._prof_steps * self.steps_per_call,
-                                             SPANS)
+                                             SPANS, [d.index for d in self.distinct
+                                                     if d.type == "cuda"])
 
     def record(self, pcm, words):
         """Keep one tick's outputs of the sample: pcm [S, 160] int16,
@@ -206,6 +236,40 @@ def compare(limits, ref_pcm, ref_words, got_pcm, got_words):
     failed = int((bad | words_off.any(axis=-1)).sum()) + (n_expected - n) * ref_pcm.shape[1]
     facts = {"pcm_max_lsb": int(frame_lsb.max()) if frame_lsb.size else 0}
     return checks, failed, facts
+
+
+def device_readings(run, peak_of, outputs):
+    """Each distinct device's reading of the window: its index,
+    memory_peak_bytes (peak_of[device]; None off CUDA, where it is not
+    measured), harness_bytes, outputs (whether outputs the consumer took in
+    the window came from it: it is in `outputs`) and, under --trace 1 on
+    CUDA, busy_s in the traced slice (0 without one)."""
+    out = []
+    for d in run.distinct:
+        r = {"device": str(d), "index": d.index, "memory_peak_bytes": peak_of[d],
+             "harness_bytes": run.harness_bytes.get(d, 0), "outputs": d in outputs}
+        if run.args.trace and d.type == "cuda":
+            mine = run.trace["devices"].get(d.index) if run.trace else None
+            r["busy_s"] = mine["busy_s"] if mine else 0.0
+        out.append(r)
+    return out
+
+
+def unmet(reading):
+    """The conditions for a device to count as used that its reading
+    fails (none: it ran the program): program memory beyond the harness's
+    own buffers in the window, where measured; outputs the consumer took
+    produced on it; under --trace 1, device operations in the traced
+    slice, where traced."""
+    failed = []
+    peak, held = reading["memory_peak_bytes"], reading["harness_bytes"]
+    if peak is not None and peak <= held:
+        failed.append(f"no program memory (window peak {peak} B, harness {held} B)")
+    if not reading["outputs"]:
+        failed.append("no outputs the consumer took came from it")
+    if reading.get("busy_s", 1.0) <= 0:
+        failed.append("no device operation in the traced slice")
+    return failed
 
 
 def reference_outputs(codec, soft, carry_enh, bits, rel, seeds, device, n_ticks, keep=None,
@@ -264,18 +328,20 @@ def main(argv=None, device=None, overrides=None):
     args = ap.parse_args(argv)
 
     cell, config, traffic, e2e_metrics, layer_metrics = load_cell(args.workload, overrides)
+    chips = int(cell["chips"])
 
     import torch
     if device is None:
-        if not torch.cuda.is_available() or torch.cuda.device_count() < int(cell["chips"]):
-            print(f"portbench: needs {cell['chips']} CUDA device(s); "
+        if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+            print(f"portbench: needs {chips} CUDA device(s); "
                   f"torch.cuda.is_available()={torch.cuda.is_available()}", file=sys.stderr)
             return 1
-        device = "cuda:0"
+        device = [f"cuda:{i}" for i in range(chips)]
     import mbe_tpu_torch  # noqa: F401  (the program; fails here without it)
     from portbench.traffic import generator
 
-    run = Run(args, cell, config, traffic, device, torch)
+    run = Run(args, cell, config, traffic, [device] if isinstance(device, str) else device,
+              torch)
     entry = load_module(HERE / "entries" / f"{traffic['entry']}.py",
                         f"portbench_entry_{traffic['entry']}")
 
@@ -293,23 +359,42 @@ def main(argv=None, device=None, overrides=None):
     setup_s = time.perf_counter() - T_START
 
     # ---- the measured window
-    if run.cuda:
-        torch.cuda.reset_peak_memory_stats(run.device)
+    cuda_devices = [d for d in run.distinct if d.type == "cuda"]
+    for d in cuda_devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    run.output_devices.clear()
     t_window = time.perf_counter()
     e2e = entry.window(run)
     run.end_trace()
     t_window = time.perf_counter() - t_window
-    if run.cuda:
-        peak = torch.cuda.max_memory_allocated(run.device)
-        run.counters["peak_mem_mib"] = (peak - run.harness_bytes) / 2 ** 20
-    else:
-        peak = 0
+    peak_of = {d: torch.cuda.max_memory_allocated(d) if d.type == "cuda" else None
+               for d in run.distinct}
+    outputs = set(run.output_devices)
     got_pcm, got_words, n_ticks = entry.finish(run)
     attempted = int(e2e.pop("attempted"))
-    if run.cuda:
-        torch.cuda.empty_cache()
+    for d in cuda_devices:
+        with torch.cuda.device(d):
+            torch.cuda.empty_cache()
 
     run.read_trace()
+
+    # ---- the devices the program used: as many as the cell asks for, of one kind
+    readings = device_readings(run, peak_of, outputs)
+    used = [r for r in readings if not unmet(r)]
+    names = sorted({torch.cuda.get_device_name(r["device"]) if run.cuda else "cpu"
+                    for r in used})
+    if len(used) < chips or len(names) > 1:
+        print(f"portbench: the program used {len(used)} device(s) of {names} where the cell "
+              f"asks for {chips} of one kind (given: {', '.join(map(str, run.devices))})",
+              file=sys.stderr)
+        for r in readings:
+            print(f"portbench: {r['device']}: " + ("; ".join(unmet(r)) or "used"),
+                  file=sys.stderr)
+        return 1
+    full = max(readings, key=lambda r: r["memory_peak_bytes"] or 0)
+    if run.cuda:
+        run.counters["peak_mem_mib"] = ((full["memory_peak_bytes"] - full["harness_bytes"])
+                                        / 2 ** 20)
 
     # ---- the check against the plain reference, after the window
     t_ref = time.perf_counter()
@@ -339,9 +424,10 @@ def main(argv=None, device=None, overrides=None):
             raise RuntimeError(f"entry {traffic['entry']!r} measured no {missing}")
         metrics = {m["name"]: {"value": float(e2e[m["name"]]), "unit": m["unit"]}
                    for m in e2e_metrics}
-    dev = {"platform": "gpu" if run.cuda else "cpu",
-           "kind": torch.cuda.get_device_name(run.device) if run.cuda else "cpu",
-           "count": 1, "memory_peak_bytes": int(peak)}
+    per_device = [{k: r[k] for k in ("index", "memory_peak_bytes", "harness_bytes", "busy_s")
+                   if k in r} for r in readings]
+    dev = {"platform": "gpu" if run.cuda else "cpu", "kind": names[0], "count": len(used),
+           "memory_peak_bytes": int(full["memory_peak_bytes"] or 0), "per_device": per_device}
     result = {"correct": bool(correct), "attempted": attempted, "failed": int(failed),
               "metrics": metrics, "device": dev}
     if args.trace and run.trace is not None:

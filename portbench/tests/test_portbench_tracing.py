@@ -36,7 +36,8 @@ OPS = [
 
 
 def _run(ops, steps):
-    return SimpleNamespace(trace={"ops": list(reversed(ops)), "steps": steps})
+    """A run whose traced slice holds `ops` on one device."""
+    return SimpleNamespace(trace={"steps": steps, "devices": {0: {"ops": list(reversed(ops))}}})
 
 
 def test_region_seconds_sums_each_op_into_the_last_mark():
@@ -57,12 +58,12 @@ def test_busy_ms_per_step_and_none_without_marks():
 
 
 def _events(ops, ranges, window=(0.0, 300.0)):
-    """events_of's tuples: the slice, device kernels, the ranges and a host
-    runtime call."""
-    return ([("host", "slice", *window)]
-            + [("device", n, s, e) for n, s, e in ops]
-            + [("host", n, s, e) for n, s, e in ranges]
-            + [("host", "cudaGraphLaunch", 0.0, 500.0)])
+    """events_of's tuples: the slice, device 0's kernels, the ranges and a
+    host runtime call."""
+    return ([("host", "slice", *window, None)]
+            + [("device", n, s, e, 0) for n, s, e in ops]
+            + [("host", n, s, e, None) for n, s, e in ranges]
+            + [("host", "cudaGraphLaunch", 0.0, 500.0, None)])
 
 
 def test_idle_in_counts_only_idle_time_inside_the_ranges():
@@ -73,9 +74,14 @@ def test_idle_in_counts_only_idle_time_inside_the_ranges():
               ("mbe.stream.wait", 160.0, 280.0)]
     events = _events(ops, ranges)
     # 5 (5-10) + 10 (60-70) + 5 (90-95) + 20 (150-170)
-    assert program_spans.idle_in(events, "mbe.graph.replay") == pytest.approx(40.0)
-    assert program_spans.idle_in(events, "mbe.stream.wait") == pytest.approx(120.0)
-    assert program_spans.idle_in(events, "mbe.stream.stage") is None
+    assert program_spans.idle_in(events, "mbe.graph.replay", 0) == pytest.approx(40.0)
+    assert program_spans.idle_in(events, "mbe.stream.wait", 0) == pytest.approx(120.0)
+    assert program_spans.idle_in(events, "mbe.stream.stage", 0) is None
+    # another device's kernels do not fill device 0's idle time
+    other = events + [("device", "e", 60.0, 100.0, 1)]
+    assert program_spans.idle_in(other, "mbe.graph.replay", 0) == pytest.approx(40.0)
+    # device 1 idles but in [60, 100): inside the ranges [5, 60) and [140, 170)
+    assert program_spans.idle_in(other, "mbe.graph.replay", 1) == pytest.approx(55.0 + 30.0)
 
 
 def test_idle_in_ms_none_without_a_profiler():
@@ -96,11 +102,11 @@ def test_events_of_a_stopped_profiler():
     prof.stop()
     prof.export_chrome_trace(str(Path(tempfile.mkdtemp()) / "t.json"))
     events = program_spans.events_of(prof)
-    (_, _, s0, e0), = [e for e in events if e[:2] == ("host", "slice")]
-    (_, _, s1, e1), = [e for e in events if e[:2] == ("host", "portbench.test.range")]
+    (_, _, s0, e0, _), = [e for e in events if e[:2] == ("host", "slice")]
+    (_, _, s1, e1, _), = [e for e in events if e[:2] == ("host", "portbench.test.range")]
     assert s0 <= s1 < e1 <= e0
     # no device op on the CPU: the whole range is device-idle
-    assert program_spans.idle_in(events, "portbench.test.range") == pytest.approx(e1 - s1)
+    assert program_spans.idle_in(events, "portbench.test.range", 0) == pytest.approx(e1 - s1)
 
 
 def test_mean_ms_reads_the_program_counters(monkeypatch):
@@ -158,8 +164,9 @@ def test_events_of_a_traced_replay_on_card(cuda):
     prof.stop()
     prof.export_chrome_trace(str(Path(tempfile.mkdtemp()) / "t.json"))
     events = program_spans.events_of(prof)
-    device = [name for kind, name, _, _ in events if kind == "device"]
+    device = [name for kind, name, _, _, _ in events if kind == "device"]
     assert device.count("mbe_region_bit_domain") == 2 and device.count("mbe_region_end") == 2
     assert "slice" not in device and "mbe.graph.replay" not in device
     assert len(device) > 500
-    assert program_spans.idle_in(events, "mbe.graph.replay") >= 0.0
+    assert {index for kind, _, _, _, index in events if kind == "device"} == {0}
+    assert program_spans.idle_in(events, "mbe.graph.replay", 0) >= 0.0
