@@ -2,9 +2,10 @@
 `jax.jit` with donated arguments.
 
 `Captured(fn, device, warmup)` first runs `warmup()` once, eagerly, on a
-side stream. That fills the per-device constant caches (`lru_cache`
-tables) and makes each kernel's one-time set-up, neither of which a
-capture may contain. It then captures `fn()` into a `torch.cuda.CUDAGraph`
+side stream made on `device`. That fills the per-device constant caches
+(`lru_cache` tables) and makes each kernel's one-time set-up on that
+device, neither of which a capture may contain. It then captures `fn()`,
+on the same stream, into a `torch.cuda.CUDAGraph`
 (the default capture error mode, "global": any host-to-device upload or
 synchronization inside `fn` raises). `fn` reads and writes only tensors
 that outlive the graph (its static inputs and state); what it returns
@@ -69,6 +70,9 @@ class Captured:
 
     def __init__(self, fn, device, warmup):
         self.device = torch.device(device)
+        if self.device.type != "cuda" or self.device.index is None:
+            # "cuda" alone would capture and replay on whichever device is current
+            raise ValueError(f"Captured needs a CUDA device with its index, got {device!r}")
         with torch.cuda.device(self.device):
             side = torch.cuda.Stream()
             side.wait_stream(torch.cuda.current_stream())
@@ -77,7 +81,10 @@ class Captured:
             torch.cuda.current_stream().wait_stream(side)
             before = [m.LAUNCHES for m in KERNELS]
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            # on the side stream, made on this device: torch.cuda.graph's own
+            # default stream is made once, on the device current at the first
+            # capture in the process, and would move a later capture there
+            with torch.cuda.graph(self.graph, stream=side):
                 self.outputs = fn()
         self.launches = [m.LAUNCHES - b for m, b in zip(KERNELS, before)]
         for m, b in zip(KERNELS, before):

@@ -15,6 +15,9 @@ The program's spans:
     mbe.stream.wait       StreamingDecoder: waiting for a tick's readback
     mbe.stream.copy_out   StreamingDecoder: the copy out of the pinned slot
                           and the unbundle
+    mbe.shard.round       parallel/sharding: one frame copied in and replayed
+                          on every shard, each on its stream, with its PCM and
+                          result words' copies out enqueued
 """
 
 import contextlib

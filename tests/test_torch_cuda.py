@@ -722,6 +722,54 @@ def test_sharded_step_two_shards_on_card(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("soft", [False, True], ids=["hard", "soft"])
+def test_sharded_list_form_two_shards_on_card(cuda_device, soft):
+    """sharded_sequence's list form on ["cuda:0", "cuda:0"], int16, imbe7200
+    (e2e_imbe7200_soft tiled to 1000 channels, 12 frames, two calls), each
+    shard's frames on the card: each shard's PCM, result words and state
+    equal run_sequence of its own channels bit for bit; the tensor form
+    equals the list form gathered; against run_sequence over all channels
+    the words are exact and the PCM within 1 LSB on fewer than 1e-3 of
+    samples (the rule above); the rounds counter advances by 12 a call."""
+    from mbe_tpu_torch.parallel import sharding
+    from mbe_tpu_torch.utils import profiling
+    C, T, k = 1000, 12, 2
+    v = np.load(VECTORS / "e2e_imbe7200_soft.npz")
+    reps = -(-C // v["frames"].shape[1])
+    frames = torch.as_tensor(np.tile(v["frames"][:T], (1, reps, 1, 1))[:, :C], device=cuda_device)
+    rel = (torch.as_tensor(np.tile(v["rel"][:T], (1, reps, 1, 1))[:, :C], device=cuda_device)
+           if soft else None)
+    seeds = np.tile(v["seeds"], reps)[:C]
+    mesh = sharding.channel_mesh(["cuda:0", "cuda:0"])
+    init = st.init_state(C, rng_seed=seeds, carry_enh=False, device=cuda_device)
+    shards, tensor_shards, alone = (sharding.shard_state(init, mesh) for _ in range(3))
+    split = [p.contiguous() for p in torch.tensor_split(frames, k, dim=1)]
+    rel_split = [None] * k if rel is None else [p.contiguous()
+                                                for p in torch.tensor_split(rel, k, dim=1)]
+    listed = sharding.sharded_sequence("imbe7200", mesh, int16=True)
+    whole = sharding.sharded_sequence("imbe7200", mesh, int16=True)
+    full = init
+    for call in range(2):
+        rounds = profiling.snapshot().get("mbe.shard.round", (0, 0))[0]
+        shards, pcm, res = listed(split, shards, None if rel is None else rel_split)
+        assert profiling.snapshot()["mbe.shard.round"][0] - rounds == T
+        tensor_shards, t_pcm, t_res = whole(frames, tensor_shards, rel)
+        full, ref_pcm, ref_res = pipeline.run_sequence("imbe7200", frames, full, rel, int16=True)
+        for i in range(k):
+            alone[i], a_pcm, a_res = pipeline.run_sequence("imbe7200", split[i], alone[i],
+                                                           rel_split[i], int16=True)
+            assert pcm[i].device == cuda_device and pcm[i].dtype == torch.int16
+            assert torch.equal(pcm[i], a_pcm), (call, i)
+            assert all(torch.equal(res[i][key], a_res[key]) for key in a_res), (call, i)
+            assert all(torch.equal(x, y) for x, y in zip(_leaves(shards[i]), _leaves(alone[i])))
+        assert torch.equal(t_pcm, torch.cat(pcm, dim=1))
+        assert all(torch.equal(t_res[key], torch.cat([r[key] for r in res], 1)) for key in t_res)
+        assert all(torch.equal(t_res[key], ref_res[key]) for key in ref_res)
+        diff = (t_pcm.int() - ref_pcm.int()).abs()
+        assert diff.max().item() <= 1 and (diff > 0).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
 def test_device_time_matmul_against_peak(cuda_device):
     """device_time (a graph of the body, replayed) of a bf16 4096 x 4096
     matmul: 137.4 GFLOP, 0.139 ms at the 989 TFLOP/s peak; the slope lies
