@@ -5,9 +5,10 @@
 
 Phases, each asserting (any failure ends the run with a nonzero exit):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the four kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
-     soft_decode (csrc/softecc.cu), unvoiced_wola (csrc/unvoiced.cu) and
-     sources (csrc/sources.cu), one nvcc each, started together;
+  2. build the five kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
+     soft_decode (csrc/softecc.cu), unvoiced_wola (csrc/unvoiced.cu),
+     sources (csrc/sources.cu) and lane_select (csrc/select.cu), one nvcc
+     each, started together;
   3. voiced_sums against its plain PyTorch version on the card at
      C = 16, 1000 and 32768, an eighth of the lanes (at least 4) edge
      lanes with steps s in {1e-4, 1e-3, pi - 1e-3, 3}: max |err| /
@@ -28,6 +29,12 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      main path runs them; an eager call's time is printed beside), summed
      at C = 32768 per IMBE step (comfort noise and LCG buffer) and per AMBE
      step (and the tone);
+  3e. lane_select: the calls of one C = 32768 step of imbe7200 hard (1)
+     and of ambe2450 soft (4), recorded from the fourth eager step of
+     random frames, each bit-equal to the plain where chain on the card
+     (floats as int32), both timed inside CUDA graphs per step beside the
+     byte bound (each mask read once, each written leaf written once and
+     its chosen source read once per lane unless a constant);
   4. the golden vectors through the port's pipeline on the card, each
      twice: e2e_{imbe7200,imbe7100,ambe2450,ambe2400}, hard and soft (C=16,
      T=40), and long_{imbe7200,imbe7100,ambe2450,ambe2400} (C=4, T=200),
@@ -40,7 +47,8 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      frame against eager, printed); voiced_sums and unvoiced_wola launched
      (or replayed) once per frame, soft_decode 3 times per soft IMBE frame
      and 2 times per soft AMBE frame, sources 2 times per IMBE frame and 3
-     times per AMBE frame;
+     times per AMBE frame, lane_select once per IMBE frame and 4 times per
+     AMBE frame;
   5. the main paths at full width: C = 32768 channels of random frames at
      T = 8 and T = 48, all eight configurations of bench.py: imbe7200 hard
      and soft, ambe2450 hard and soft, ambe2400 hard (soft input is random
@@ -57,7 +65,8 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
      window of each arm of the first five (utils.profiling.trace) gives
      wall ms, device events, device busy ms and idle share per step and
      the count of each kernel's symbol per step: 1 voiced_sums_kernel, 1
-     unvoiced_wola_kernel, 3 or 2 soft_decode_kernel on the soft paths.
+     unvoiced_wola_kernel, 3 or 2 soft_decode_kernel on the soft paths,
+     1 (IMBE) or 4 (AMBE) lane_select_kernel.
      Random frames are mostly error frames, but the step's work does not
      depend on frame content: B2 searches every codeword, and every FSM
      branch is computed and then selected lane by lane;
@@ -96,9 +105,10 @@ Phases, each asserting (any failure ends the run with a nonzero exit):
 
 Every kernel launch counter is zeroed just before each path of phases
 4-9 and read just after it (phase 9's in its worker processes); each
-path asserts its B1, B2, B3 and S (sources) counts. A graph replay runs no Python: the compiled step adds its graph's launches
-of each kernel (the counts during its capture) to the counters on every
-replay, and phase 5's profiler traces count the kernels themselves.
+path asserts its B1, B2, B3, S (sources) and lane_select counts. A graph
+replay runs no Python: the compiled step adds its graph's launches of each
+kernel (the counts during its capture) to the counters on every replay,
+and phase 5's profiler traces count the kernels themselves.
 `bound_ms` in the kernels JSON is the least time the
 card could take for the function on this run's inputs: the larger of the
 bytes it must move over the memory rate and its operations of each type
@@ -106,10 +116,11 @@ over that type's peak rate (H100 SXM data sheet, dense). The operations
 are those the function needs, not those of the port's kernel design; the
 design's own floor is printed beside it. The sources entry's `ms`,
 `plain_ms` and `bound_ms` are an AMBE step's three launches at C = 32768;
-`ms_imbe_step` and its companions an IMBE step's two. The last lines are the
-kernels JSON, the card, and {"ok": true, "device": {...}}. There is no
-CPU path: without a CUDA device, or without the package beside this
-script, it exits nonzero.
+`ms_imbe_step` and its companions an IMBE step's two; likewise the
+lane_select entry's, an AMBE step's four launches and an IMBE step's one.
+The last lines are the kernels JSON, the card, and {"ok": true,
+"device": {...}}. There is no CPU path: without a CUDA device, or without
+the package beside this script, it exits nonzero.
 """
 
 import json
@@ -138,6 +149,9 @@ UNVOICED_TOL = 1e-4    # relative to max |ref|: DFT sum order
 B2_PER_SOFT_STEP = {"imbe7200": 3, "imbe7100": 3, "ambe2450": 2, "ambe2400": 2}
 # S launches per step: comfort noise and the LCG buffer, and the tone in AMBE
 S_PER_STEP = {"imbe7200": 2, "imbe7100": 2, "ambe2450": 3, "ambe2400": 3}
+# lane_select launches per step: IMBE's headroom select; AMBE's prepare,
+# update, speech-path and commit selects
+L_PER_STEP = {"imbe7200": 1, "imbe7100": 1, "ambe2450": 4, "ambe2400": 4}
 HBM_BYTES_S = 3.35e12  # H100 SXM device memory
 FP32_OPS_S = 33.5e12   # 67 TFLOP/s FP32 = 33.5T FMA lanes/s; one FP32 instruction per lane-op
 BF16_FLOP_S = 989e12   # tensor cores, bf16 in, FP32 accumulate
@@ -508,6 +522,97 @@ def phase_sources(noise, synth, sources, device):
                 bound_ms_imbe_step=b_imbe["bound_ms"], **b_ambe)
 
 
+def recorded_selects(pipeline, select, device, codec, soft):
+    """The lane_select calls of one eager C = SCALE_C step of `codec` (the
+    fourth of random frames, so the AMBE prepare finds its lanes already in
+    AMBE mode), each in the kernel's argument form."""
+    from mbe_tpu_torch.models.state import init_state
+    frames, rel = scale_frames(pipeline, codec, soft, device, t_max=4)
+    state = init_state(SCALE_C, carry_enh=codec.startswith("ambe"), device=device)
+    launch, calls = select.lane_select, []
+
+    def record(selects):
+        calls.append(selects)
+        return launch(selects)
+
+    for t in range(4):
+        if t == 3:
+            select.lane_select = record
+        try:
+            state = pipeline.step(codec, frames[t], state, None if rel is None else rel[t])[0]
+        finally:
+            select.lane_select = launch
+    torch.cuda.synchronize()
+    return calls
+
+
+def select_bytes(select, selects):
+    """The least bytes of one lane_select call on these inputs: each mask
+    read once; each output leaf the kernel writes written once, and per lane
+    its chosen source read once unless that is a constant (through earlier
+    outputs' choices)."""
+    args, _, outputs = select.pack(selects)
+    masks = {m.data_ptr(): m.numel() for cases, _ in selects for m, _ in cases}
+    total = sum(masks.values())
+    reads = []  # per output and leaf, [C] bool: the lane reads a tensor
+    for o, (cases, default) in enumerate(selects):
+        c = cases[0][0].shape[0]
+        pick = torch.full((c,), len(cases), device=cases[0][0].device)
+        for q in reversed(range(len(cases))):
+            pick = torch.where(cases[q][0], q, pick)
+        sources = [t for _, t in cases] + [default]
+        reads.append([])
+        for k in range(len(default)):
+            r = torch.zeros(c, dtype=torch.bool, device=pick.device)
+            for q, t in enumerate(sources):
+                tensor = reads[t][k] if isinstance(t, int) else isinstance(t[k], torch.Tensor)
+                r = r | ((pick == q) & tensor)
+            reads[o].append(r)
+            if args.out[o][k]:
+                row = outputs[o][k].numel() // c * outputs[o][k].element_size()
+                total += row * (c + int(r.sum().item()))
+    return total
+
+
+def phase_lane_select(pipeline, state, select, device):
+    """Phase 3e: the lane_select calls of one C = SCALE_C step of imbe7200
+    hard and of ambe2450 soft (recorded_selects), each bit-equal on the
+    card to the plain where chain (select_many_reference, which makes the
+    constant leaves tensors first) on the same inputs; the step's launches
+    and the plain chain timed inside CUDA graphs, beside the byte bound."""
+    per_step = {}
+    for codec, soft in (("imbe7200", False), ("ambe2450", True)):
+        calls = recorded_selects(pipeline, select, device, codec, soft)
+        assert len(calls) == L_PER_STEP[codec], f"{codec}: {len(calls)} lane_select calls"
+
+        def parms(leaves):
+            return leaves if isinstance(leaves, int) else state.Parms(
+                **dict(zip(state.PARMS_FIELDS, leaves)))
+
+        plain_calls = [[([(m, parms(t)) for m, t in cases], parms(d)) for cases, d in sel]
+                       for sel in calls]
+        for i, (sel, p) in enumerate(zip(calls, plain_calls)):
+            got = [x for out in select.lane_select(sel) for x in out]
+            want = [getattr(out, k) for out in state.select_many_reference(p)
+                    for k in state.PARMS_FIELDS]
+            assert same_bits(got, want), f"lane_select {codec} call {i}: differs from plain"
+        before = select.LAUNCHES
+        ms = graphed_ms(lambda: [select.lane_select(sel) for sel in calls])
+        assert select.LAUNCHES == before + GRAPH_CALLS * len(calls), f"{codec}: captured launches"
+        plain_ms = graphed_ms(lambda: [state.select_many_reference(p) for p in plain_calls])
+        nbytes = sum(select_bytes(select, sel) for sel in calls)
+        b = bound(nbytes)
+        per_step[codec] = (ms, plain_ms, b)
+        print(f"kernel lane_select per {codec} step C={SCALE_C} ({len(calls)} launches, each "
+              f"bit-equal to the plain form): kernel {ms!r} ms, plain {plain_ms!r} ms, bound "
+              f"{b['bound_ms']!r} ms ({b['bound_by']}, {nbytes / 1e6!r} MB); "
+              f"{ms / b['bound_ms']!r}x the bound [{card()}]")
+    ms, plain_ms, b = per_step["ambe2450"]
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, ms_imbe_step=per_step["imbe7200"][0],
+                plain_ms_imbe_step=per_step["imbe7200"][1],
+                bound_ms_imbe_step=per_step["imbe7200"][2]["bound_ms"], **b)
+
+
 def check_outputs(name, vec, pcm, res, dbits=None):
     """Bit-exact counts/flags (and parameter bits), per-frame and int16 SNR."""
     from mbe_tpu_torch.ops.synth import float_to_short
@@ -565,7 +670,7 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
     launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
-                sources=S_PER_STEP[codec] * T)
+                sources=S_PER_STEP[codec] * T, lane_select=L_PER_STEP[codec] * T)
     assert launches == want, f"{name}: kernel launches {launches} in {T} frames, want {want}"
     check_outputs(name, vec, pcm, res, dbits)
     return pcm, res, dbits, state
@@ -640,7 +745,7 @@ def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eag
     launches = counts(kernels)
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
-                sources=S_PER_STEP[codec] * T)
+                sources=S_PER_STEP[codec] * T, lane_select=L_PER_STEP[codec] * T)
     assert launches == want, f"{name} graphed: kernel launches {launches} in {T} replays"
     exact, worst = same_as_eager(name, (pcm, res, dbits, state), eager)
     print(f"golden {name} graphed ({'run_sequence' if sequence else 'CompiledStep'}): "
@@ -732,7 +837,7 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
     steps = 2 + reps * sum(SCALE_T)
     per_step = dict(voiced_sums=1, unvoiced_wola=1,
                     soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0,
-                    sources=S_PER_STEP[codec])
+                    sources=S_PER_STEP[codec], lane_select=L_PER_STEP[codec])
     want = {k: per_step[k] * steps for k in kernels}
     assert launches == want, f"{path}: kernel launches {launches}, want {want}"
     peak = torch.cuda.max_memory_allocated(device) / 2**30
@@ -750,7 +855,8 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
 
 KERNEL_SYMBOLS = dict(voiced_sums="voiced_sums_kernel", soft_decode="soft_decode_kernel",
                       unvoiced_wola="unvoiced_wola_kernel", comfort_noise="comfort_noise_kernel",
-                      lcg_buffer="lcg_buffer_kernel", tone_render="tone_render_kernel")
+                      lcg_buffer="lcg_buffer_kernel", tone_render="tone_render_kernel",
+                      lane_select="lane_select_kernel")
 PROFILE_STEPS = 4      # steps per profiled window in phase 5
 
 
@@ -806,7 +912,8 @@ def scale_path(pipeline, init_state, kernels, device, codec, soft):
 
     per_step = dict(voiced_sums=1.0, unvoiced_wola=1.0,
                     soft_decode=float(B2_PER_SOFT_STEP[codec]) if soft else 0.0,
-                    comfort_noise=1.0, lcg_buffer=1.0, tone_render=float(ambe))
+                    comfort_noise=1.0, lcg_buffer=1.0, tone_render=float(ambe),
+                    lane_select=float(L_PER_STEP[codec]))
     for arm, run in (("eager", eager_run), ("graphed", graphed_run)):
         wall, n_events, busy, idle, symbols = profile_steps(
             run, PROFILE_STEPS, ROOT / "build" / "traces" / f"{codec}_{int(soft)}_{arm}")
@@ -928,7 +1035,8 @@ def phase_api(api, pipeline, kernels, device):
             worst = min(worst, snr_db(vec["pcm"][t], audio[0].cpu().numpy()))
         launches = counts(kernels)
         assert launches == dict(voiced_sums=T, soft_decode=0, unvoiced_wola=T,
-                                sources=S_PER_STEP[codec] * T), \
+                                sources=S_PER_STEP[codec] * T,
+                                lane_select=L_PER_STEP[codec] * T), \
             f"{fname}: kernel launches {launches} in {T} frames"
         print(f"api {fname} over fsm_{codec}: T={T} flags exact, worst frame "
               f"{float(worst)!r} dB, kernel launches {launches}")
@@ -949,7 +1057,8 @@ def phase_api(api, pipeline, kernels, device):
             d_ref, res = getattr(api, f"decode_{name}_frame")(frame, rel)
             fused = counts(kernels)
             assert staged["voiced_sums"] == staged["unvoiced_wola"] == fused["voiced_sums"] \
-                == fused["unvoiced_wola"] == staged["sources"] == fused["sources"] == 0
+                == fused["unvoiced_wola"] == staged["sources"] == fused["sources"] \
+                == staged["lane_select"] == fused["lane_select"] == 0
             staged, fused = staged["soft_decode"], fused["soft_decode"]
             same = (torch.equal(d, d_ref) and torch.equal(c0, res["c0_errors"])
                     and torch.equal(prot, res["protected_errors"])
@@ -999,7 +1108,8 @@ def stream_ticks(streaming, kernels, device, codec, packed, direct, seeds, unpac
     # before the decoder captures its tick at the first push
     steps = STREAM_TICKS + (device.type == "cuda")
     assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
-                            sources=S_PER_STEP[codec] * steps), launches
+                            sources=S_PER_STEP[codec] * steps,
+                            lane_select=L_PER_STEP[codec] * steps), launches
     assert len(got) == STREAM_TICKS and len(dec._graphs) == (device.type == "cuda")
     for t, ((pcm, res), (pcm_w, res_w)) in enumerate(zip(got, direct)):
         np.testing.assert_array_equal(pcm, pcm_w, err_msg=f"streaming {codec} {unpack} t={t}")
@@ -1077,7 +1187,8 @@ def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
     launches = counts(kernels)
     steps = 4 * CKPT_STEPS
     assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
-                            sources=S_PER_STEP["imbe7200"] * steps), launches
+                            sources=S_PER_STEP["imbe7200"] * steps,
+                            lane_select=L_PER_STEP["imbe7200"] * steps), launches
     same_pcm = all(torch.equal(a, b) for a, b in zip(pcm_ref, pcm_a + pcm_b))
     same_state = all(torch.equal(a, b) for a, b in zip(leaves(ref), leaves(fin)))
     print(f"checkpoint imbe7200 hard C={SCALE_C}: {CKPT_STEPS} steps, save, load(cuda), "
@@ -1169,7 +1280,7 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
             # warm-up step before its capture
             steps = len(mesh) * (SHARD_T + (device.type == "cuda"))
             want = dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
-                        sources=S_PER_STEP[codec] * steps)
+                        sources=S_PER_STEP[codec] * steps, lane_select=L_PER_STEP[codec] * steps)
             assert launches == want, f"{name} {codec}: kernel launches {launches}, want {want}"
             diff = (float_to_short_of(pcm).int() - float_to_short_of(ref_pcm).int()).abs()
             ints = all(torch.equal(res[k], ref_res[k]) for k in ref_res)
@@ -1207,6 +1318,7 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
     launches = counts(kernels)
     assert launches["voiced_sums"] == launches["unvoiced_wola"] > 24
     assert launches["sources"] == S_PER_STEP["imbe7200"] * launches["voiced_sums"]
+    assert launches["lane_select"] == L_PER_STEP["imbe7200"] * launches["voiced_sums"]
     print(f"device_time one graphed imbe7200 hard step C={SCALE_C}: {sec * 1e3!r} ms per "
           f"step, beside phase 5's graphed slope {hard_slope_ms!r} ms/frame-step (run_sequence: "
           f"frame copy in, replay, PCM and results copied out) [{card()}]")
@@ -1263,12 +1375,13 @@ def main():
         return 1
     sys.path.insert(0, str(ROOT))
     from mbe_tpu_torch import api, native, pipeline
+    from mbe_tpu_torch.models import state
     from mbe_tpu_torch.models.state import init_state
     from mbe_tpu_torch.parallel import sharding, streaming
     from mbe_tpu_torch.utils import checkpoint, profiling
     from mbe_tpu_torch.ops import ecc
     from mbe_tpu_torch.ops import noise, synth
-    from mbe_tpu_torch.ops.cuda import softecc, sources, unvoiced, voiced
+    from mbe_tpu_torch.ops.cuda import select, softecc, sources, unvoiced, voiced
 
     device = torch.device("cuda", 0)
     card_line = card()
@@ -1277,7 +1390,7 @@ def main():
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
     kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced,
-                   sources=sources)
+                   sources=sources, lane_select=select)
     t_start = time.perf_counter()
     seconds = {}
 
@@ -1310,6 +1423,7 @@ def main():
     k_soft = phase("3b soft_decode", phase_softecc, ecc, softecc, device)
     k_unvoiced = phase("3c unvoiced_wola", phase_unvoiced, unvoiced, device)
     k_sources = phase("3d sources", phase_sources, noise, synth, sources, device)
+    k_select = phase("3e lane_select", phase_lane_select, pipeline, state, select, device)
     phase("4 goldens", phase_goldens, pipeline, init_state, kernels, device)
     paths = phase("5 full width", scale)
     phase("6 api", phase_api, api, pipeline, kernels, device)
@@ -1340,7 +1454,12 @@ def main():
          "replaces": "no TPU kernel: plain PyTorch, mbe_tpu_torch/ops/noise.py:comfort_noise_"
                      "reference, generate_noise_with_overlap_reference, ops/synth.py:"
                      "render_tone_reference",
-         "launches": paths["ambe2450", False]["launches"]["sources"], **k_sources}]}))
+         "launches": paths["ambe2450", False]["launches"]["sources"], **k_sources},
+        {"name": "lane_select", "route": "cuda",
+         "source": "mbe_tpu_torch/csrc/select.cu",
+         "replaces": "no TPU kernel: plain PyTorch, mbe_tpu_torch/models/state.py:"
+                     "select_many_reference",
+         "launches": paths["ambe2450", False]["launches"]["lane_select"], **k_select}]}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

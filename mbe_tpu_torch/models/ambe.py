@@ -22,8 +22,8 @@ from ..ops.enhance import spectral_amp_enhance
 from ..tables import T, table
 from . import spectral
 from .speech import current_frame_rm0, synthesize_speech_core
-from .state import (MUTING_THRESHOLD_AMBE, Parms, ambe_default_parms_like,
-                    erasure_parms, select, select_cases)
+from .state import (MUTING_THRESHOLD_AMBE, Parms, default_leaves, erasure_parms, select,
+                    select_cases, select_many)
 
 _RCONST = float(np.float32(1.0 / (2.0 * np.sqrt(2.0))))
 _UNVC = float(np.float32(0.2046))
@@ -363,10 +363,8 @@ def _ambe_prepare(total_errors, cur: Parms, prev: Parms, enh: Parms):
     """Common prepare: AMBE defaults on lanes not yet in AMBE mode, and the
     error-rate IIR (ambe3600x2450.c:716-747 / ambe3600x2400.c:629-659)."""
     need_init = torch.abs(prev.mutingThreshold - MUTING_THRESHOLD_AMBE) > 1e-6
-    defaults = ambe_default_parms_like(cur)
-    cur = select(need_init, defaults, cur)
-    prev = select(need_init, defaults, prev)
-    enh = select(need_init, defaults, enh)
+    defaults = default_leaves(ambe=True)
+    cur, prev, enh = select_many([([(need_init, defaults)], p) for p in (cur, prev, enh)])
     cur = dataclasses.replace(
         cur, mutingThreshold=torch.full_like(cur.mutingThreshold, MUTING_THRESHOLD_AMBE),
         errorCountTotal=total_errors, errorCount4=torch.zeros_like(cur.errorCount4),
@@ -448,13 +446,14 @@ def process_ambe2450(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
 
     # -- state commits -------------------------------------------------------
     marks.mark("fsm", ambe_d)
-    defaults = ambe_default_parms_like(cur)
+    defaults = default_leaves(ambe=True)
     reinit = voice_mute | tone_cn
     cur_tone = dataclasses.replace(cur, swn=swn2, tonePhase=tp2)
-    new_cur = select_cases([(voice_ok, synth_out), (tone_play, cur_tone), (reinit, defaults)],
-                           cur)
-    prev = select_cases([(voice_ok, prev_raw), (is_era, new_cur), (reinit, defaults)], prev)
-    enh = select_cases([(do_speech, synth_out), (is_era, new_cur), (reinit, defaults)], enh)
+    # one select for the three: case source 0 is the new cur (output 0)
+    new_cur, prev, enh = select_many([
+        ([(voice_ok, synth_out), (tone_play, cur_tone), (reinit, defaults)], cur),
+        ([(voice_ok, prev_raw), (is_era, 0), (reinit, defaults)], prev),
+        ([(do_speech, synth_out), (is_era, 0), (reinit, defaults)], enh)])
     flags = dict(erasure=is_era, tone=is_tone, repeat=rep, mute=voice_mute)
     return audio, new_cur, prev, enh, comfort_rng, lcg_prime, flags
 
@@ -498,12 +497,12 @@ def process_ambe2400(ambe_d, total_errors, c0_errors, c0_valid, cur: Parms, prev
     lcg_prime = torch.where(voice_ok & aux["cold_consumed"], noise.LCG_DEFAULT_SEED, lcg_prime)
 
     marks.mark("fsm", ambe_d)
-    defaults = ambe_default_parms_like(cur)
+    defaults = default_leaves(ambe=True)
     cur_tone = dataclasses.replace(cur, swn=swn2, tonePhase=tp2)
-    new_cur = select_cases([(voice_ok, synth_out), (dstar_tone, cur_tone),
-                            (cn_lanes, defaults)], cur)
-    prev = select_cases([(voice_ok, prev_raw), (dstar_tone, new_cur), (cn_lanes, defaults)],
-                        prev)
-    enh = select_cases([(voice_ok, synth_out), (cn_lanes, defaults)], enh)
+    # one select for the three: case source 0 is the new cur (output 0)
+    new_cur, prev, enh = select_many([
+        ([(voice_ok, synth_out), (dstar_tone, cur_tone), (cn_lanes, defaults)], cur),
+        ([(voice_ok, prev_raw), (dstar_tone, 0), (cn_lanes, defaults)], prev),
+        ([(voice_ok, synth_out), (cn_lanes, defaults)], enh)])
     flags = dict(erasure=torch.zeros_like(voice), tone=is_tone3, repeat=rep, mute=voice_mute)
     return audio, new_cur, prev, enh, comfort_rng, lcg_prime, flags

@@ -543,7 +543,7 @@ def process_imbe4400(words, total_errors, c0_errors, c4_errors,
     # -- prepare (imbe7200x4400.c:780-808) ---------------------------------
     cur = dataclasses.replace(
         cur,
-        errorCount4=c4_errors,
+        errorCount4=c4_errors.contiguous(),  # a strided view of the frame decoders' counts
         mutingThreshold=torch.full_like(cur.mutingThreshold,
                                         MUTING_THRESHOLD_IMBE),
         errorCountTotal=total_errors,

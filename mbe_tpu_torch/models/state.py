@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..ops import noise
+from ..ops.cuda import select as lane_select
 from ..tables import T
 
 NBANDS = 57
@@ -86,38 +87,42 @@ def map_state(fn, *sts: ChannelState) -> ChannelState:
         lcg_prime=fn(*(s.lcg_prime for s in sts)))
 
 
-def _default_parms(c: int, device, ambe: bool = False) -> Parms:
-    """JMBE defaults: IMBE (mbelib.c:368-409) or AMBE W124
-    (ambe_common.c:192-229)."""
-    f32, i32 = torch.float32, torch.int32
-
-    def full(shape, v, dt):
-        return torch.full(shape, v, dtype=dt, device=device)
-
+def default_leaves(ambe: bool = False) -> Parms:
+    """JMBE defaults, IMBE (mbelib.c:368-409) or AMBE W124
+    (ambe_common.c:192-229), as constant leaves: each leaf a Python number,
+    the same on every lane. The selects take such leaves as they are (the
+    kernel writes them from immediates); `materialize` makes tensors of
+    them."""
     return Parms(
-        w0=full((c,), float(T.default_w0[0 if ambe else 2]), f32),
-        L=full((c,), 15 if ambe else 39, i32),
-        K=full((c,), 0 if ambe else 12, i32),
-        Vl=full((NBANDS, c), 0, i32),
-        Ml=full((NBANDS, c), 1.0, f32),
-        log2Ml=full((NBANDS, c), 0.0, f32),
-        PHIl=full((NBANDS, c), 0.0, f32),
-        PSIl=full((NBANDS, c), 0.0, f32),
-        gamma=full((c,), 0.0, f32),
-        tonePhase=full((c,), 0, torch.int64),
-        swn=full((c,), 0, torch.int64),
-        localEnergy=full((c,), DEFAULT_LOCAL_ENERGY, f32),
-        amplitudeThreshold=full((c,), DEFAULT_AMPLITUDE_THRESHOLD, i32),
-        errorRate=full((c,), 0.0, f32),
-        errorCountTotal=full((c,), 0, i32),
-        errorCount4=full((c,), 0, i32),
-        repeatCount=full((c,), 0, i32),
-        mutingThreshold=full((c,), MUTING_THRESHOLD_AMBE if ambe else MUTING_THRESHOLD_IMBE,
-                             f32),
-        previousUw=full((128, c), 0.0, f32),
-        noiseSeed=full((c,), -1.0, f32),
-        noisePrevSeed=full((c,), -1.0, f32),
-    )
+        w0=float(T.default_w0[0 if ambe else 2]), L=15 if ambe else 39, K=0 if ambe else 12,
+        Vl=0, Ml=1.0, log2Ml=0.0, PHIl=0.0, PSIl=0.0, gamma=0.0, tonePhase=0, swn=0,
+        localEnergy=DEFAULT_LOCAL_ENERGY, amplitudeThreshold=DEFAULT_AMPLITUDE_THRESHOLD,
+        errorRate=0.0, errorCountTotal=0, errorCount4=0, repeatCount=0,
+        mutingThreshold=MUTING_THRESHOLD_AMBE if ambe else MUTING_THRESHOLD_IMBE,
+        previousUw=0.0, noiseSeed=-1.0, noisePrevSeed=-1.0)
+
+
+# the leading axes and dtype of each leaf (the channel axis follows)
+_F32, _I32, _I64 = torch.float32, torch.int32, torch.int64
+LEAF_LAYOUT = dict(
+    w0=((), _F32), L=((), _I32), K=((), _I32), Vl=((NBANDS,), _I32), Ml=((NBANDS,), _F32),
+    log2Ml=((NBANDS,), _F32), PHIl=((NBANDS,), _F32), PSIl=((NBANDS,), _F32), gamma=((), _F32),
+    tonePhase=((), _I64), swn=((), _I64), localEnergy=((), _F32), amplitudeThreshold=((), _I32),
+    errorRate=((), _F32), errorCountTotal=((), _I32), errorCount4=((), _I32),
+    repeatCount=((), _I32), mutingThreshold=((), _F32), previousUw=((128,), _F32),
+    noiseSeed=((), _F32), noisePrevSeed=((), _F32))
+
+
+def materialize(p: Parms, c: int, device) -> Parms:
+    """p with each constant leaf made a tensor of its leaf's shape and dtype
+    over c channels on `device`; tensor leaves are kept as they are."""
+    def leaf(k, v):
+        if isinstance(v, torch.Tensor):
+            return v
+        rows, dtype = LEAF_LAYOUT[k]
+        return torch.full((*rows, c), v, dtype=dtype, device=device)
+
+    return Parms(**{k: leaf(k, getattr(p, k)) for k in PARMS_FIELDS})
 
 
 def checked_device(device) -> torch.device:
@@ -157,7 +162,7 @@ def init_state(channels: int, rng_seed=None, carry_enh: bool = True,
     default raises.
     """
     device = checked_device(device)
-    p = _default_parms(channels, device)
+    p = materialize(default_leaves(), channels, device)
     if rng_seed is None:
         comfort = noise.java_random_init(torch.full(
             (channels,), 0x12345678, dtype=torch.int64, device=device))
@@ -175,10 +180,56 @@ def _lane_mask(mask, x):
     return mask.reshape((1,) * (x.ndim - mask.ndim) + tuple(mask.shape))
 
 
+def select_many(selects) -> list[Parms]:
+    """Several first-match-wins lane selects in one call: `selects` is a
+    list of (cases, default), one per output. Output i is, per lane and
+    leaf, the source of its first case (mask [C] bool, source) whose mask
+    is set, else its default's. A source or default may hold constant
+    leaves (Python numbers, as `default_leaves`); a case's source may be an
+    int j < i instead: output j of this call. CUDA tensors go to the
+    lane-select kernel (ops/cuda/select.py, one launch for the call),
+    anything else to the plain form, select_many_reference; the outputs are
+    equal bit for bit."""
+    if selects[0][0][0][0].device.type == "cuda":
+        def leaves(p):
+            return p if isinstance(p, int) else [getattr(p, k) for k in PARMS_FIELDS]
+
+        outs = lane_select.lane_select(
+            [([(m, leaves(t)) for m, t in cases], leaves(d)) for cases, d in selects])
+        return [Parms(**dict(zip(PARMS_FIELDS, o))) for o in outs]
+    return select_many_reference(selects)
+
+
+def select_many_reference(selects) -> list[Parms]:
+    """The plain form of select_many: per output, leaf and case (last case
+    first) a broadcast torch.where, the constant leaves made tensors first.
+    A case leaf that is the leaf already selected (the default's own,
+    before any later case applied) costs nothing."""
+    outs = []
+    for cases, default in selects:
+        c, device = cases[0][0].shape[0], cases[0][0].device
+
+        def resolve(p):
+            return outs[p] if isinstance(p, int) else materialize(p, c, device)
+
+        default = resolve(default)
+        cases = [(m, resolve(t)) for m, t in cases]
+        out = {}
+        for k in PARMS_FIELDS:
+            x = getattr(default, k)
+            for m, t in reversed(cases):
+                src = getattr(t, k)
+                if src is not x:
+                    x = torch.where(_lane_mask(m, src), src, x)
+            out[k] = x
+        outs.append(Parms(**out))
+    return outs
+
+
 def select(mask, a: Parms, b: Parms) -> Parms:
     """Lane-wise select: a where mask [C] else b, per leaf (the channel
     axis is minor, so the mask broadcasts on leading axes)."""
-    return map_parms(lambda x, y: torch.where(_lane_mask(mask, x), x, y), a, b)
+    return select_many([([(mask, a)], b)])[0]
 
 
 def select_tree(mask, a: ChannelState, b: ChannelState) -> ChannelState:
@@ -188,35 +239,19 @@ def select_tree(mask, a: ChannelState, b: ChannelState) -> ChannelState:
 
 def select_cases(cases, default: Parms) -> Parms:
     """First-match-wins lane select: select_cases([(m1, t1), (m2, t2)], d)
-    is t1 where m1, else t2 where m2, else d. A case leaf that is the leaf
-    already selected (the default's own, before any later case applied)
-    costs nothing."""
-    out = {}
-    for k in PARMS_FIELDS:
-        x = getattr(default, k)
-        for m, t in reversed(cases):
-            src = getattr(t, k)
-            if src is not x:
-                x = torch.where(_lane_mask(m, src), src, x)
-        out[k] = x
-    return Parms(**out)
-
-
-def ambe_default_parms_like(p: Parms) -> Parms:
-    """mbe_initAmbeParms_common values with p's batch shape and device
-    (ambe_common.c:192-229)."""
-    return _default_parms(p.w0.shape[0], p.w0.device, ambe=True)
+    is t1 where m1, else t2 where m2, else d (select_many's one output)."""
+    return select_many([(cases, default)])[0]
 
 
 def erasure_parms(mp: Parms, continuity: Parms) -> Parms:
     """mbe_setAmbeErasureParms_common (ambe_common.c:231-260): the W120
     model (w0 = 0, L = 9) with phase and noise continuity taken from
-    `continuity`; error, repeat and muting fields keep mp's values."""
-    d = _default_parms(mp.w0.shape[0], mp.w0.device, ambe=True)
+    `continuity`; error, repeat and muting fields keep mp's values. The
+    model's leaves are constant leaves."""
+    d = default_leaves(ambe=True)
     return dataclasses.replace(
-        mp, swn=d.swn, tonePhase=d.tonePhase, w0=torch.zeros_like(d.w0),
-        L=torch.full_like(d.L, 9), K=d.K, gamma=d.gamma, Ml=d.Ml, Vl=d.Vl,
-        log2Ml=d.log2Ml, localEnergy=d.localEnergy,
+        mp, swn=d.swn, tonePhase=d.tonePhase, w0=0.0, L=9, K=d.K, gamma=d.gamma, Ml=d.Ml,
+        Vl=d.Vl, log2Ml=d.log2Ml, localEnergy=d.localEnergy,
         amplitudeThreshold=d.amplitudeThreshold,
         **{k: getattr(continuity, k) for k in ("PHIl", "PSIl", "noiseSeed", "noisePrevSeed",
                                                "previousUw")})
@@ -224,11 +259,11 @@ def erasure_parms(mp: Parms, continuity: Parms) -> Parms:
 
 def imbe_headroom_reset(mp: Parms) -> Parms:
     """imbe_reset_headroom_defaults (imbe7200x4400.c:56-81): default voice
-    model, preserving error metrics and synthesis continuity state."""
-    d = _default_parms(mp.w0.shape[0], mp.w0.device)
+    model (constant leaves), preserving error metrics and synthesis
+    continuity state."""
     keep = ("PHIl", "PSIl", "errorRate", "errorCountTotal", "errorCount4",
             "previousUw", "noiseSeed", "noisePrevSeed")
-    return dataclasses.replace(d, **{k: getattr(mp, k) for k in keep})
+    return dataclasses.replace(default_leaves(), **{k: getattr(mp, k) for k in keep})
 
 
 def state_from_numpy(tree, device) -> ChannelState:

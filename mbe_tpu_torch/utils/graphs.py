@@ -24,10 +24,10 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda import softecc, sources, unvoiced, voiced
+from ..ops.cuda import select, softecc, sources, unvoiced, voiced
 from .spans import span
 
-KERNELS = (voiced, softecc, unvoiced, sources)
+KERNELS = (voiced, softecc, unvoiced, sources, select)
 
 
 def leaves(tree):

@@ -290,15 +290,16 @@ def test_render_tone_matches_grid_oracle():
 # ---------------------------------------------------------------------------
 
 def test_erasure_and_default_parms_match_jax():
-    """erasure_parms and ambe_default_parms_like against JAX, leaf for
-    leaf (tolerance 0)."""
+    """erasure_parms and the AMBE defaults (constant leaves, made tensors)
+    against JAX's erasure_parms and ambe_default_parms_like, leaf for leaf
+    (tolerance 0)."""
     rng = np.random.default_rng(9)
     mp, cont = _random_parms(rng, 7), _random_parms(rng, 7)
     mp = dataclasses.replace(mp, errorRate=rng.random(7).astype(np.float32),
                              errorCountTotal=rng.integers(0, 9, 7).astype(np.int32))
-    _assert_parms(st.erasure_parms(_port_parms(mp), _port_parms(cont)),
+    _assert_parms(st.materialize(st.erasure_parms(_port_parms(mp), _port_parms(cont)), 7, "cpu"),
                   jst.erasure_parms(_jax_parms(mp), _jax_parms(cont)), "erasure")
-    _assert_parms(st.ambe_default_parms_like(_port_parms(mp)),
+    _assert_parms(st.materialize(st.default_leaves(ambe=True), 7, "cpu"),
                   jst.ambe_default_parms_like(_jax_parms(mp)), "defaults")
     assert st.MUTING_THRESHOLD_AMBE == float(jst.MUTING_THRESHOLD_AMBE)
 

@@ -1,5 +1,5 @@
-"""The port on the card: the voiced, soft-decode, unvoiced and sources
-kernels against their plain versions, the golden vectors through the
+"""The port on the card: the voiced, soft-decode, unvoiced, sources and
+lane-select kernels against their plain versions, the golden vectors through the
 pipeline and the public API with the kernels in the loop, checkpoints, the streaming
 decoder (and the C host shim), the compiled step (a CUDA graph replay,
 bit-exact against the eager step), channel sharding, the two-process job,
@@ -13,6 +13,7 @@ on a machine with a card and no JAX it runs alone:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -448,6 +449,242 @@ def test_sources_run_sequence_equals_plain_forms(cuda_device, codec, monkeypatch
     for k in plain[2]:
         assert torch.equal(kernel[2][k], plain[2][k]), k
     assert all(torch.equal(a, b) for a, b in zip(_leaves(kernel[0]), _leaves(plain[0])))
+
+
+# --- the FSM's lane selects (kernel lane_select) ---------------------------------
+
+SELECT_C = (1, 33, 4097, 32768)
+SELECT_SITES = ("imbe_headroom", "ambe_prepare", "ambe2450_update", "ambe_speech",
+                "ambe2450_commit", "ambe2400_update", "ambe2400_commit")
+SELECT_PER_STEP = {"imbe7200": 1, "imbe7100": 1, "ambe2450": 4, "ambe2400": 4}
+
+
+def _card_parms(rng, c, device):
+    """Parms of random leaves on the card: floats with -0.0 and a NaN
+    payload in some lanes, int32 over their range, uint32-valued int64."""
+    out = {}
+    for k in st.PARMS_FIELDS:
+        rows, dtype = st.LEAF_LAYOUT[k]
+        shape = (*rows, c)
+        if dtype == torch.float32:
+            a = rng.normal(size=shape).astype(np.float32)
+            a.reshape(-1)[::7] = -0.0
+            a.view(np.int32).reshape(-1)[3::11] = 0x7FC0_1234
+        elif dtype == torch.int32:
+            a = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+        else:
+            a = rng.integers(0, 2**32, shape, dtype=np.int64)
+        out[k] = torch.as_tensor(a, device=device)
+    return st.Parms(**out)
+
+
+def _card_masks(rng, c, n, device, pattern):
+    """n [C] bool masks: random (pattern 0), all true (1), all false (2), or
+    overlapping runs (3: mask i set on lanes i*c/4 .. i*c/4 + c/2)."""
+    lanes = np.arange(c)
+    make = {0: lambda i: rng.random(c) < 0.3, 1: lambda i: np.ones(c, bool),
+            2: lambda i: np.zeros(c, bool),
+            3: lambda i: (lanes >= i * c // 4) & (lanes < i * c // 4 + max(c // 2, 1))}[pattern]
+    return [torch.as_tensor(make(i), device=device) for i in range(n)]
+
+
+def _select_site(site, rng, c, device, pattern):
+    """The `selects` of one FSM call site, as the codecs build them, over
+    random parameters and masks."""
+    cur, prev, enh, other = (_card_parms(rng, c, device) for _ in range(4))
+    m = _card_masks(rng, c, 3, device, pattern)
+    defaults = st.default_leaves(ambe=True)
+    cur_z = dataclasses.replace(cur, repeatCount=torch.zeros_like(cur.repeatCount))
+    cur_rep = dataclasses.replace(prev, repeatCount=prev.repeatCount + 1)
+    cur_tone = dataclasses.replace(cur, swn=other.swn, tonePhase=other.tonePhase)
+    return {
+        "imbe_headroom": lambda: [([(m[0], st.imbe_headroom_reset(cur)), (m[1], cur_rep)], cur)],
+        "ambe_prepare": lambda: [([(m[0], defaults)], p) for p in (cur, prev, enh)],
+        "ambe2450_update": lambda: [([(m[0], st.erasure_parms(cur_z, prev)), (m[1], cur_z),
+                                      (m[2], cur_rep)], cur_z)],
+        "ambe_speech": lambda: [([(m[0], enh)], dataclasses.replace(cur, Ml=other.Ml))],
+        "ambe2450_commit": lambda: [
+            ([(m[0], other), (m[1], cur_tone), (m[2], defaults)], cur),
+            ([(m[0], enh), (m[1] & ~m[0], 0), (m[2], defaults)], prev),
+            ([(m[0] | m[1], other), (m[1], 0), (m[2], defaults)], enh)],
+        "ambe2400_update": lambda: [([(m[0], cur_z), (m[1], cur), (m[2], cur_rep)], cur_z)],
+        "ambe2400_commit": lambda: [
+            ([(m[0], other), (m[1], cur_tone), (m[2], defaults)], cur),
+            ([(m[0], enh), (m[1], 0), (m[2], defaults)], prev),
+            ([(m[0], other), (m[2], defaults)], enh)],
+    }[site]()
+
+
+def _assert_same_parms(got, want):
+    """Equal dtypes, shapes and bits, leaf for leaf (floats as int32)."""
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        _assert_equal_outputs([getattr(g, k) for k in st.PARMS_FIELDS],
+                              [getattr(w, k) for k in st.PARMS_FIELDS])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", SELECT_C)
+@pytest.mark.parametrize("site", SELECT_SITES)
+def test_lane_select_matches_plain(cuda_device, site, c):
+    """Each FSM select site on its own: st.select_many on card tensors,
+    which launches lane_select once, equals the plain where chain on the
+    card bit for bit, with random, all-true, all-false and overlapping
+    masks."""
+    from mbe_tpu_torch.ops.cuda import select
+    rng = np.random.default_rng(c + SELECT_SITES.index(site))
+    for pattern in range(4):
+        selects = _select_site(site, rng, c, cuda_device, pattern)
+        before = select.LAUNCHES
+        got = st.select_many(selects)
+        torch.cuda.synchronize()
+        assert select.LAUNCHES == before + 1
+        _assert_same_parms(got, st.select_many_reference(selects))
+
+
+@pytest.mark.cuda
+def test_lane_select_chained_commit(cuda_device):
+    """The commit trio in one launch: on erasure lanes (no earlier case set)
+    prev and enh take the new cur, whichever source the new cur chose there
+    (the synthesized, tone, default or kept parameters)."""
+    c = 4096
+    rng = np.random.default_rng(5)
+    cur, prev, enh, synth_out = (_card_parms(rng, c, cuda_device) for _ in range(4))
+    lane = torch.arange(c, device=cuda_device)
+    voice_ok, tone_play, reinit = lane % 5 == 0, lane % 5 == 1, lane % 5 == 2
+    is_era = lane % 3 != 0
+    cur_tone = dataclasses.replace(cur, swn=synth_out.swn, tonePhase=synth_out.tonePhase)
+    defaults = st.default_leaves(ambe=True)
+    selects = [([(voice_ok, synth_out), (tone_play, cur_tone), (reinit, defaults)], cur),
+               ([(voice_ok, prev), (is_era, 0), (reinit, defaults)], prev),
+               ([(voice_ok | tone_play, synth_out), (is_era, 0), (reinit, defaults)], enh)]
+    got = st.select_many(selects)
+    _assert_same_parms(got, st.select_many_reference(selects))
+    era = is_era & ~voice_ok
+
+    def bits(x):  # float leaves hold NaN payloads: compare their bits
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for k in st.PARMS_FIELDS:
+        new = bits(getattr(got[0], k))
+        assert torch.equal(bits(getattr(got[1], k))[..., era], new[..., era]), k
+        assert torch.equal(bits(getattr(got[2], k))[..., era & ~tone_play],
+                           new[..., era & ~tone_play]), k
+
+
+def _select_frames(codec, soft, T, C, device):
+    """[T, C] frames (and reliabilities) mixing real content and noise: a
+    golden's channels with a time offset per channel (tones, silence,
+    erasures, repeats), random bits on every third channel (erasures,
+    repeats, mutes, headroom resets)."""
+    name = f"e2e_{codec}_soft" if soft else f"long_{codec}"
+    vec = dict(np.load(VECTORS / f"{name}.npz"))
+    n, width = vec["frames"].shape[:2]
+    ch = np.arange(C)
+    t = (np.arange(T)[:, None] + 7 * ch[None, :]) % n
+    frames = vec["frames"][t, ch % width].astype(np.int32)
+    rng = np.random.default_rng(C)
+    noise = ch % 3 == 2
+    frames[:, noise] = rng.integers(0, 2, frames[:, noise].shape)
+    rel = None
+    if soft:
+        rel = vec["rel"][t, ch % width]
+        rel[:, noise] = rng.integers(0, 256, rel[:, noise].shape)
+        rel = torch.as_tensor(rel, device=device)
+    return torch.as_tensor(frames, device=device), rel
+
+
+SELECT_RUNS = [("imbe7200", False), ("imbe7200", True), ("imbe7100", False), ("ambe2450", True),
+               ("ambe2400", False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec,soft", SELECT_RUNS,
+                         ids=[f"{c}-{'soft' if s else 'hard'}" for c, s in SELECT_RUNS])
+def test_lane_select_run_sequence_equals_plain(cuda_device, codec, soft, monkeypatch):
+    """20 chained frames through run_sequence (golden content with tones,
+    silence and erasures, and noise) on 2052 channels: state, result words
+    and PCM equal those of the same run with the plain selects forced in
+    place of the kernel, and the kernel ran 1 (IMBE) or 4 (AMBE) times a
+    step."""
+    from mbe_tpu_torch.models import ambe
+    from mbe_tpu_torch.ops.cuda import select
+    C, T = 2052, 20
+    frames, rel = _select_frames(codec, soft, T, C, cuda_device)
+    seeds = np.arange(1, C + 1, dtype=np.uint32)
+
+    def run():
+        pipeline.clear_compiled()
+
+        def init():
+            return st.init_state(C, rng_seed=seeds, carry_enh=codec.startswith("ambe"),
+                                 device=cuda_device)
+
+        pipeline.compiled_step(codec, init(), soft)  # capture before counting
+        before = select.LAUNCHES
+        return pipeline.run_sequence(codec, frames, init(), rel), select.LAUNCHES - before
+
+    kernel, launches = run()
+    assert launches == T * SELECT_PER_STEP[codec]
+    with monkeypatch.context() as m:
+        m.setattr(st, "select_many", st.select_many_reference)
+        m.setattr(ambe, "select_many", st.select_many_reference)
+        plain, launches = run()
+        assert launches == 0
+    pipeline.clear_compiled()
+    assert torch.equal(kernel[1].view(torch.int32), plain[1].view(torch.int32))
+    for k in plain[2]:
+        assert torch.equal(kernel[2][k], plain[2][k]), k
+    for a, b in zip(_leaves(kernel[0]), _leaves(plain[0])):
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32 else a,
+                           b.view(torch.int32) if b.dtype == torch.float32 else b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", pipeline.CODECS)
+def test_lane_select_nodes_per_captured_step(cuda_device, codec):
+    """A CompiledStep's graph holds lane_select's launches, 1 per IMBE step
+    and 4 per AMBE one; each replay advances LAUNCHES by as many."""
+    from mbe_tpu_torch.ops.cuda import select
+    from mbe_tpu_torch.utils import graphs
+    C = 1000
+    compiled = pipeline.CompiledStep(
+        codec, st.init_state(C, carry_enh=codec.startswith("ambe"), device=cuda_device))
+    nodes = dict(zip(graphs.KERNELS, compiled._graph.launches))[select]
+    assert nodes == SELECT_PER_STEP[codec]
+    frames = _random_frames(codec, 3, C, 3)
+    before = select.LAUNCHES
+    for t in range(3):
+        compiled(frames[t])
+    assert select.LAUNCHES - before == 3 * nodes
+
+
+@pytest.mark.cuda
+def test_lane_select_rejects_bad_inputs(cuda_device):
+    """Wrong dtype, device, shape, a non-contiguous leaf or mask: ValueError
+    before any launch."""
+    from mbe_tpu_torch.ops.cuda import select
+    rng = np.random.default_rng(6)
+    a, b = _card_parms(rng, 64, cuda_device), _card_parms(rng, 64, cuda_device)
+    m = torch.as_tensor(rng.random(64) < 0.5, device=cuda_device)
+
+    def call(mask=m, **kw):
+        return st.select_many([([(mask, dataclasses.replace(b, **kw))], a)])
+
+    before = select.LAUNCHES
+    with pytest.raises(ValueError, match="float64"):
+        call(w0=a.w0.double())
+    with pytest.raises(ValueError, match="cpu"):
+        call(L=a.L.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        call(Ml=a.Ml[:, :32])
+    with pytest.raises(ValueError, match="contiguous"):
+        call(Ml=torch.empty((64, 57), device=cuda_device).T)
+    with pytest.raises(ValueError, match="mask"):
+        call(mask=m.int())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(mask=torch.zeros((64, 2), dtype=torch.bool, device=cuda_device)[:, 0])
+    assert select.LAUNCHES == before
 
 
 # --- the public API, checkpoints and streaming on the card ---------------------

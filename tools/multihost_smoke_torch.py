@@ -88,8 +88,9 @@ def setup(args):
 
 
 def kernels():
-    from mbe_tpu_torch.ops.cuda import softecc, sources, unvoiced, voiced
-    return dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced, sources=sources)
+    from mbe_tpu_torch.ops.cuda import select, softecc, sources, unvoiced, voiced
+    return dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced, sources=sources,
+                lane_select=select)
 
 
 def to_int16(pcm):
@@ -188,7 +189,8 @@ def check_worker(args, device, torch, dist):
         # per shard a replay per frame and the eager warm-up step before its capture
         steps = len(mesh) * (T + 1)
         want = dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
-                    sources=steps * (3 if args.codec.startswith("ambe") else 2))
+                    sources=steps * (3 if args.codec.startswith("ambe") else 2),
+                    lane_select=steps * (4 if args.codec.startswith("ambe") else 1))
         assert launches == want, f"kernel launches {launches}, want {want}"
 
     g = np.load(Path(args.tmp) / "golden.npz")
