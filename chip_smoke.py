@@ -5,10 +5,11 @@
 
 Phases, each asserting (any failure ends the run with a nonzero exit):
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build the five kernels, voiced_sums (mbe_tpu_torch/csrc/voiced.cu),
-     soft_decode (csrc/softecc.cu), unvoiced_wola (csrc/unvoiced.cu),
-     sources (csrc/sources.cu) and lane_select (csrc/select.cu), one nvcc
-     each, started together;
+  2. build every kernel library of the registry (ops/cuda/build.KERNELS):
+     voiced_sums (mbe_tpu_torch/csrc/voiced.cu), soft_decode
+     (csrc/softecc.cu), unvoiced_wola (csrc/unvoiced.cu), sources
+     (csrc/sources.cu), lane_select (csrc/select.cu) and the region marks
+     (csrc/marks.cu), one nvcc each, started together;
   3. voiced_sums against its plain PyTorch version on the card at
      C = 16, 1000 and 32768, an eighth of the lanes (at least 4) edge
      lanes with steps s in {1e-4, 1e-3, pi - 1e-3, 3}: max |err| /
@@ -476,16 +477,16 @@ def phase_sources(noise, synth, sources, device):
         inputs = sources_inputs(noise, c, device)
         ms, plain_ms = {}, {}
         for name, args in inputs.items():
-            before = sources.LAUNCHES
+            before = counts()["sources"]
             out = dispatch[name](*args)
             torch.cuda.synchronize()
-            assert sources.LAUNCHES == before + 1, f"{name} C={c}: launches"
+            assert counts()["sources"] == before + 1, f"{name} C={c}: launches"
             same = same_bits(out, plain[name](*args))
             assert same, f"sources {name} C={c}: outputs differ from the plain form"
             eager_ms = cuda_ms(lambda: dispatch[name](*args), 50)
-            before = sources.LAUNCHES
+            before = counts()["sources"]
             ms[name] = graphed_ms(lambda: dispatch[name](*args))
-            assert sources.LAUNCHES == before + GRAPH_CALLS, f"{name} C={c}: captured launches"
+            assert counts()["sources"] == before + GRAPH_CALLS, f"{name} C={c}: captured launches"
             plain_ms[name] = graphed_ms(lambda: plain[name](*args))
             print(f"kernel sources {name} C={c}: bit-equal to the plain form {same}; graphed: "
                   f"kernel {ms[name]!r} ms, plain {plain_ms[name]!r} ms; an eager call "
@@ -596,9 +597,10 @@ def phase_lane_select(pipeline, state, select, device):
             want = [getattr(out, k) for out in state.select_many_reference(p)
                     for k in state.PARMS_FIELDS]
             assert same_bits(got, want), f"lane_select {codec} call {i}: differs from plain"
-        before = select.LAUNCHES
+        before = counts()["lane_select"]
         ms = graphed_ms(lambda: [select.lane_select(sel) for sel in calls])
-        assert select.LAUNCHES == before + GRAPH_CALLS * len(calls), f"{codec}: captured launches"
+        assert counts()["lane_select"] == before + GRAPH_CALLS * len(calls), \
+            f"{codec}: captured launches"
         plain_ms = graphed_ms(lambda: [state.select_many_reference(p) for p in plain_calls])
         nbytes = sum(select_bytes(select, sel) for sel in calls)
         b = bound(nbytes)
@@ -636,18 +638,19 @@ def check_outputs(name, vec, pcm, res, dbits=None):
     assert s16 >= SNR_MIN_DB, f"{name}: int16 stream {s16} dB"
 
 
-def zero(kernels):
-    """Set every kernel's launch counter to 0 (just before a path)."""
-    for m in kernels.values():
-        m.LAUNCHES = 0
+def zero():
+    """Set every kernel's launch count to 0 (just before a path)."""
+    from mbe_tpu_torch.ops.cuda import build
+    build.zero()
 
 
-def counts(kernels):
-    """Every kernel's launch count (just after a path)."""
-    return {k: m.LAUNCHES for k, m in kernels.items()}
+def counts():
+    """Every kernel's launch count, by counter (just after a path)."""
+    from mbe_tpu_torch.ops.cuda import build
+    return build.counts()
 
 
-def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
+def golden(pipeline, init_state, device, name, codec, soft, step=None):
     """One golden vector through `step` (pipeline.step unless given:
     step(frame, state, rel) -> (state, audio, res, dbits)), frame by frame,
     eagerly on the card. Returns (pcm [T, C, 160], results dict of [T, C],
@@ -658,7 +661,7 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
     frames = torch.as_tensor(vec["frames"], device=device)
     rel = torch.as_tensor(vec["rel"], device=device) if soft else None
     step = step or (lambda frame, st, r: pipeline.step(codec, frame, st, r))
-    zero(kernels)
+    zero()
     pcm, res, dbits = [], [], []
     for t in range(T):
         state, audio, r, d = step(frames[t], state, None if rel is None else rel[t])
@@ -667,7 +670,7 @@ def golden(pipeline, init_state, kernels, device, name, codec, soft, step=None):
         dbits.append(d.cpu().numpy())
     pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
                        np.stack(dbits))
-    launches = counts(kernels)
+    launches = counts()
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
                 sources=S_PER_STEP[codec] * T, lane_select=L_PER_STEP[codec] * T)
@@ -713,7 +716,7 @@ def same_as_eager(name, got, eager):
     return exact, worst
 
 
-def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eager):
+def golden_graphed(pipeline, init_state, device, name, codec, soft, eager):
     """The graphed arm of one golden: CompiledStep replays (e2e) or
     run_sequence (long), against the eager loop's outputs (`eager`, from
     golden) and the golden's own bar; launches per replay asserted."""
@@ -728,12 +731,12 @@ def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eag
     sequence = name.startswith("long")
     if sequence:
         pipeline.compiled_step(codec, init(), soft)  # the capture (and its warm-up) first
-        zero(kernels)
+        zero()
         state, pcm, res = pipeline.run_sequence(codec, frames, init(), rel)
         dbits = None
     else:
         compiled = pipeline.CompiledStep(codec, init(), soft=soft)
-        zero(kernels)
+        zero()
         pcm, res, dbits = [], [], []
         for t in range(T):
             state, audio, r = compiled(frames[t], None if rel is None else rel[t])
@@ -742,7 +745,7 @@ def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eag
             dbits.append(compiled.dbits.cpu().numpy())
         pcm, res, dbits = (torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]},
                            np.stack(dbits))
-    launches = counts(kernels)
+    launches = counts()
     want = dict(voiced_sums=T, unvoiced_wola=T,
                 soft_decode=B2_PER_SOFT_STEP[codec] * T if soft else 0,
                 sources=S_PER_STEP[codec] * T, lane_select=L_PER_STEP[codec] * T)
@@ -754,12 +757,12 @@ def golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eag
     check_outputs(f"{name} graphed", vec, pcm, res, dbits)
 
 
-def phase_goldens(pipeline, init_state, kernels, device):
+def phase_goldens(pipeline, init_state, device):
     for codec in ("imbe7200", "imbe7100", "ambe2450", "ambe2400"):
         names = [(f"e2e_{codec}", False), (f"e2e_{codec}_soft", True), (f"long_{codec}", False)]
         for name, soft in names:
-            eager = golden(pipeline, init_state, kernels, device, name, codec, soft)
-            golden_graphed(pipeline, init_state, kernels, device, name, codec, soft, eager)
+            eager = golden(pipeline, init_state, device, name, codec, soft)
+            golden_graphed(pipeline, init_state, device, name, codec, soft, eager)
     pipeline.clear_compiled()
 
 
@@ -786,14 +789,14 @@ def eager_sequence(pipeline, codec, frames, state, rel=None):
     return state, torch.stack(pcm), {k: torch.stack([r[k] for r in res]) for k in res[0]}
 
 
-def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_REPS,
+def phase_scale(pipeline, init_state, device, codec, soft, reps=SCALE_REPS,
                 arm="graphed"):
     """One main path at C = SCALE_C, one arm: "eager" (eager_sequence) or
     "graphed" (run_sequence, which replays the compiled step; captured
     before the counts). The slope between the fastest of `reps` T = 8 and
     T = 48 runs, each ending in a readback of the PCM sum, with every
-    launch counter of `kernels` ({name: module}) zeroed before the runs and
-    read after them. Returns {launches, slope_ms, peak_gib}."""
+    kernel's launch count zeroed before the runs and read after them.
+    Returns {launches, slope_ms, peak_gib}."""
     frames, rel = scale_frames(pipeline, codec, soft, device)
     path = f"{codec} {'soft' if soft else 'hard'} {arm}"
     ambe = codec.startswith("ambe")
@@ -824,7 +827,7 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
         pipeline.compiled_step(codec, state, soft)  # the warm-up step and the capture
         torch.cuda.synchronize()
         capture_s = time.perf_counter() - t0
-    zero(kernels)
+    zero()
     run(2)  # warm-up: device tables, allocator
     times = {T: [] for T in SCALE_T}
     cpu = {T: [] for T in SCALE_T}
@@ -833,12 +836,12 @@ def phase_scale(pipeline, init_state, kernels, device, codec, soft, reps=SCALE_R
             dt, c = run(T)
             times[T].append(dt)
             cpu[T].append(c)
-    launches = counts(kernels)
+    launches = counts()
     steps = 2 + reps * sum(SCALE_T)
     per_step = dict(voiced_sums=1, unvoiced_wola=1,
                     soft_decode=B2_PER_SOFT_STEP[codec] if soft else 0,
                     sources=S_PER_STEP[codec], lane_select=L_PER_STEP[codec])
-    want = {k: per_step[k] * steps for k in kernels}
+    want = {k: n * steps for k, n in per_step.items()}
     assert launches == want, f"{path}: kernel launches {launches}, want {want}"
     peak = torch.cuda.max_memory_allocated(device) / 2**30
 
@@ -879,7 +882,7 @@ def profile_steps(run, n, logdir):
     return wall, len(events) / n, busy, 1.0 - busy / wall, symbols
 
 
-def scale_path(pipeline, init_state, kernels, device, codec, soft):
+def scale_path(pipeline, init_state, device, codec, soft):
     """Phase 5 for one path: the eager and graphed arms in the order E G G
     E (the eager arm at SCALE_REPS_EAGER runs per T), the graphed PCM and
     results against the eager ones at T = 8, and a profiled window of each
@@ -889,7 +892,7 @@ def scale_path(pipeline, init_state, kernels, device, codec, soft):
     arms = {}
     for arm in ("eager", "graphed", "graphed", "eager"):
         arms.setdefault(arm, []).append(phase_scale(
-            pipeline, init_state, kernels, device, codec, soft,
+            pipeline, init_state, device, codec, soft,
             reps=SCALE_REPS if arm == "graphed" else SCALE_REPS_EAGER, arm=arm))
 
     ambe = codec.startswith("ambe")
@@ -948,11 +951,11 @@ def graphed_equals_eager(pipeline, init_state, device, codec, soft):
     return frames, rel
 
 
-def scale_graphed_path(pipeline, init_state, kernels, device, codec, soft):
+def scale_graphed_path(pipeline, init_state, device, codec, soft):
     """Phase 5 for imbe7100 hard and soft and ambe2400 soft: the graphed
     arm alone (phase_scale, SCALE_REPS runs per T, launches per replay
     asserted) and graphed_equals_eager."""
-    out = phase_scale(pipeline, init_state, kernels, device, codec, soft)
+    out = phase_scale(pipeline, init_state, device, codec, soft)
     graphed_equals_eager(pipeline, init_state, device, codec, soft)
     pipeline.clear_compiled()
     return out
@@ -996,7 +999,7 @@ def host_ms(fn, reps=API_REPS):
     return (issued - t0) / reps * 1e3, (done - t0) / reps * 1e3
 
 
-def phase_api(api, pipeline, kernels, device):
+def phase_api(api, pipeline, device):
     """Phase 6: the public API on the card."""
     # the eight frame entry points over the e2e goldens
     for codec, name in API_NAME.items():
@@ -1005,7 +1008,7 @@ def phase_api(api, pipeline, kernels, device):
 
             def step(frame, st, rel, fn=fn, soft=soft):
                 return fn(frame, rel, st) if soft else fn(frame, st)
-            golden(pipeline, api.init_mbe_parms, kernels, device,
+            golden(pipeline, api.init_mbe_parms, device,
                    f"e2e_{codec}_soft" if soft else f"e2e_{codec}", codec, soft, step=step)
     # the int16 entry point is float_to_short of the float one, frame by frame
     vec = dict(np.load(VECTORS / "e2e_imbe7200.npz"))
@@ -1024,7 +1027,7 @@ def phase_api(api, pipeline, kernels, device):
         vec = dict(np.load(VECTORS / f"fsm_{codec}.npz"))
         T = vec["dbits"].shape[0]
         state = api.init_mbe_parms(1, np.uint32(vec["seed"]), device=device)
-        zero(kernels)
+        zero()
         worst = np.inf
         for t in range(T):
             audio, state, fsm = getattr(api, fname)(vec["dbits"][t][None], state,
@@ -1033,7 +1036,7 @@ def phase_api(api, pipeline, kernels, device):
             assert flags == int(vec["flags"][t]), f"fsm_{codec} t={t}: flags {flags:#x}"
             assert int(fsm["status"][0]) == 0
             worst = min(worst, snr_db(vec["pcm"][t], audio[0].cpu().numpy()))
-        launches = counts(kernels)
+        launches = counts()
         assert launches == dict(voiced_sums=T, soft_decode=0, unvoiced_wola=T,
                                 sources=S_PER_STEP[codec] * T,
                                 lane_select=L_PER_STEP[codec] * T), \
@@ -1050,12 +1053,12 @@ def phase_api(api, pipeline, kernels, device):
         for soft in (False, True):
             rel = (torch.as_tensor(rng.integers(0, 256, shape), dtype=torch.int32, device=device)
                    if soft else None)
-            zero(kernels)
+            zero()
             d, c0, prot, c4 = staged_decode(api, codec, frame, rel)
-            staged = counts(kernels)
-            zero(kernels)
+            staged = counts()
+            zero()
             d_ref, res = getattr(api, f"decode_{name}_frame")(frame, rel)
-            fused = counts(kernels)
+            fused = counts()
             assert staged["voiced_sums"] == staged["unvoiced_wola"] == fused["voiced_sums"] \
                 == fused["unvoiced_wola"] == staged["sources"] == fused["sources"] \
                 == staged["lane_select"] == fused["lane_select"] == 0
@@ -1088,14 +1091,14 @@ def phase_api(api, pipeline, kernels, device):
           f"host validation of the numpy frame {t_check!r} ms [{card()}]")
 
 
-def stream_ticks(streaming, kernels, device, codec, packed, direct, seeds, unpack):
+def stream_ticks(streaming, device, codec, packed, direct, seeds, unpack):
     """StreamingDecoder(codec, SCALE_C, depth=2, unpack) over the packed
     ticks, equal to the direct steps' (int16 PCM, result dict) and with
     its launches asserted; returns each push's ms."""
     dec = streaming.StreamingDecoder(codec, SCALE_C, rng_seed=seeds, depth=2, unpack=unpack,
                                      device=device)
     torch.cuda.synchronize()
-    zero(kernels)
+    zero()
     got, ticks = [], []
     t0 = time.perf_counter()
     for t in range(STREAM_TICKS):
@@ -1103,7 +1106,7 @@ def stream_ticks(streaming, kernels, device, codec, packed, direct, seeds, unpac
         ticks.append(time.perf_counter())
     got.extend(dec.flush())
     wall = time.perf_counter() - t0
-    launches = counts(kernels)
+    launches = counts()
     # the ticks' replays and, on the card, the one eager warm-up step
     # before the decoder captures its tick at the first push
     steps = STREAM_TICKS + (device.type == "cuda")
@@ -1145,7 +1148,7 @@ def shim_vs_numpy(native, packed, n_bits, push_ms):
           f"host-unpack push ({push_ms!r} ms) [{card()}]")
 
 
-def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
+def phase_state(api, pipeline, checkpoint, streaming, native, device):
     """Phase 7: a checkpoint at full width, then the streaming decoder."""
     from mbe_tpu_torch.models.state import PARMS_FIELDS
     from mbe_tpu_torch.ops.synth import float_to_short
@@ -1168,7 +1171,7 @@ def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
         return [getattr(p, k) for p in parts for k in PARMS_FIELDS] + [st.comfort_rng,
                                                                        st.lcg_prime]
 
-    zero(kernels)
+    zero()
     ref, pcm_ref = run(api.init_mbe_parms(SCALE_C, seeds, device=device), 0, 2 * CKPT_STEPS)
     mid, pcm_a = run(api.init_mbe_parms(SCALE_C, seeds, device=device), 0, CKPT_STEPS)
     path = ROOT / "build" / "chip_smoke_snapshot.npz"
@@ -1184,7 +1187,7 @@ def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
     t_load = time.perf_counter() - t0
     path.unlink()
     fin, pcm_b = run(loaded, CKPT_STEPS, 2 * CKPT_STEPS)
-    launches = counts(kernels)
+    launches = counts()
     steps = 4 * CKPT_STEPS
     assert launches == dict(voiced_sums=steps, soft_decode=0, unvoiced_wola=steps,
                             sources=S_PER_STEP["imbe7200"] * steps,
@@ -1211,7 +1214,7 @@ def phase_state(api, pipeline, checkpoint, streaming, native, kernels, device):
             direct.append((float_to_short(audio).cpu().numpy(),
                            {k: v.cpu().numpy() for k, v in res.items()}))
         for unpack in ("device", "host") if codec == "imbe7200" else ("device",):
-            push_ms = stream_ticks(streaming, kernels, device, codec, packed, direct, seeds,
+            push_ms = stream_ticks(streaming, device, codec, packed, direct, seeds,
                                    unpack)
         if codec == "imbe7200":
             assert native.available(), "the host unpack did not load the C shim"
@@ -1234,7 +1237,7 @@ SHARD_T = 8            # frames of the phase-8 sharded runs
 MATMUL_N = 4096        # phase 8: device_time of a bf16 [N, N] @ [N, N]
 
 
-def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, hard_slope_ms):
+def phase_sharding(pipeline, sharding, profiling, init_state, device, hard_slope_ms):
     """Phase 8: sharded_step and sharded_sequence on two shards of cuda:0
     (a CompiledStep and a stream each) against the unsharded compiled step
     at C = SCALE_C; device_time of a bf16 matmul against the card's peak
@@ -1253,7 +1256,7 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
             lambda: pipeline.run_sequence(codec, frames, init()))}
         pipeline.clear_compiled()
         runs = {}
-        zero(kernels)
+        zero()
         step = sharding.sharded_step(codec, mesh)
         shards = sharding.shard_state(init(), mesh)
         pcm, res = [], []
@@ -1263,17 +1266,17 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
             res.append(r)
         runs["sharded_step"] = (frozen(shards), torch.stack(pcm),
                                 {k: torch.stack([r[k] for r in res]) for k in res[0]},
-                                counts(kernels))
+                                counts())
 
         def step_again(shards=shards):
             for t in range(SHARD_T):
                 shards, *_ = step(frames[t], shards)
 
         steady["sharded_step"] = timed(step_again)
-        zero(kernels)
+        zero()
         sequence = sharding.sharded_sequence(codec, mesh)
         shards, pcm, res = sequence(frames, sharding.shard_state(init(), mesh))
-        runs["sharded_sequence"] = (frozen(shards), pcm, res, counts(kernels))
+        runs["sharded_sequence"] = (frozen(shards), pcm, res, counts())
         steady["sharded_sequence"] = timed(lambda: sequence(frames, shards))
         for name, (shards, pcm, res, launches) in runs.items():
             # per shard a replay per frame and, on the card, the one eager
@@ -1311,11 +1314,11 @@ def phase_sharding(pipeline, sharding, profiling, init_state, kernels, device, h
     assert 1.0 <= sec / peak <= 4.0, f"matmul slope {sec / peak}x its peak time"
 
     frames, _ = scale_frames(pipeline, "imbe7200", False, device, t_max=1)
-    zero(kernels)
+    zero()
     sec = profiling.device_time(lambda st: pipeline.step("imbe7200", frames[0], st)[0],
                                 init_state(SCALE_C, carry_enh=False, device=device),
                                 iters=24, short_iters=4)
-    launches = counts(kernels)
+    launches = counts()
     assert launches["voiced_sums"] == launches["unvoiced_wola"] > 24
     assert launches["sources"] == S_PER_STEP["imbe7200"] * launches["voiced_sums"]
     assert launches["lane_select"] == L_PER_STEP["imbe7200"] * launches["voiced_sums"]
@@ -1381,7 +1384,7 @@ def main():
     from mbe_tpu_torch.utils import checkpoint, profiling
     from mbe_tpu_torch.ops import ecc
     from mbe_tpu_torch.ops import noise, synth
-    from mbe_tpu_torch.ops.cuda import select, softecc, sources, unvoiced, voiced
+    from mbe_tpu_torch.ops.cuda import build, select, softecc, sources, unvoiced, voiced
 
     device = torch.device("cuda", 0)
     card_line = card()
@@ -1389,8 +1392,6 @@ def main():
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
 
-    kernels = dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced,
-                   sources=sources, lane_select=select)
     t_start = time.perf_counter()
     seconds = {}
 
@@ -1401,36 +1402,37 @@ def main():
         print(f"phase {name}: {seconds[name]!r} s", flush=True)
         return out
 
-    def build():
-        with ThreadPoolExecutor(len(kernels)) as pool:
-            for fut in [pool.submit(k.load_library) for k in kernels.values()]:
+    def compile_kernels():
+        libraries = {k.source: k for k in build.KERNELS}  # an entry point of each
+        with ThreadPoolExecutor(len(libraries)) as pool:
+            for fut in [pool.submit(k.load) for k in libraries.values()]:
                 fut.result()
-        print(f"build {' + '.join(kernels)}")
+        print(f"build {' + '.join(source.name for source in libraries)}")
 
     def scale():
         paths = {}
         for codec, soft in (("imbe7200", False), ("imbe7200", True), ("ambe2450", False),
                             ("ambe2450", True), ("ambe2400", False)):
-            paths[codec, soft] = scale_path(pipeline, init_state, kernels, device, codec, soft)
+            paths[codec, soft] = scale_path(pipeline, init_state, device, codec, soft)
         for codec, soft in (("imbe7100", False), ("imbe7100", True), ("ambe2400", True)):
-            paths[codec, soft] = scale_graphed_path(pipeline, init_state, kernels, device, codec,
+            paths[codec, soft] = scale_graphed_path(pipeline, init_state, device, codec,
                                                     soft)
         pipeline.clear_compiled()
         return paths
 
-    phase("2 build", build)
+    phase("2 build", compile_kernels)
     k_voiced = phase("3 voiced_sums", phase_kernel, voiced, device)
     k_soft = phase("3b soft_decode", phase_softecc, ecc, softecc, device)
     k_unvoiced = phase("3c unvoiced_wola", phase_unvoiced, unvoiced, device)
     k_sources = phase("3d sources", phase_sources, noise, synth, sources, device)
     k_select = phase("3e lane_select", phase_lane_select, pipeline, state, select, device)
-    phase("4 goldens", phase_goldens, pipeline, init_state, kernels, device)
+    phase("4 goldens", phase_goldens, pipeline, init_state, device)
     paths = phase("5 full width", scale)
-    phase("6 api", phase_api, api, pipeline, kernels, device)
+    phase("6 api", phase_api, api, pipeline, device)
     phase("7 state and streaming", phase_state, api, pipeline, checkpoint, streaming, native,
-          kernels, device)
-    phase("8 sharding", phase_sharding, pipeline, sharding, profiling, init_state, kernels,
-          device, paths["imbe7200", False]["graphed_slope_ms"])
+          device)
+    phase("8 sharding", phase_sharding, pipeline, sharding, profiling, init_state, device,
+          paths["imbe7200", False]["graphed_slope_ms"])
     torch.cuda.empty_cache()
     phase("9 multihost", phase_multihost, paths["ambe2450", False]["graphed_slope_ms"])
     print(f"seconds per phase {seconds!r}; total {time.perf_counter() - t_start!r} s "

@@ -19,41 +19,20 @@ For a CPU tensor it does nothing. The regions, in a step's order:
                 the next bit_domain is outside the step
 """
 
-import ctypes
-
 import torch
 
 from . import build
 
 REGIONS = ("bit_domain", "fsm", "synthesis", "commit", "end")
 
-SOURCE = build.CSRC / "marks.cu"
-
 _INDEX = {r: i for i, r in enumerate(REGIONS)}
-_FN = None
-
-
-def load_library():
-    """Build (if needed) and load the marks' library; returns the C entry
-    point `mbe_region_mark` with its argument types set."""
-    global _FN
-    if _FN is None:
-        fn = build.load(SOURCE).mbe_region_mark
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
+MARK = build.register(build.Kernel(None, build.CSRC / "marks.cu", "mbe_region_mark",
+                                   [build.INT, build.PTR], None))
 
 
 def mark(region: str, like: torch.Tensor):
     """Launch `region`'s mark on the current stream of like's device; no-op
     for a CPU tensor."""
     index = _INDEX[region]
-    device = like.device
-    if device.type != "cuda":
-        return
-    fn = load_library()
-    with torch.cuda.device(device):
-        err = fn(index, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"region mark {region!r}: CUDA error {err}")
+    if like.device.type == "cuda":
+        MARK.launch(like.device, index)

@@ -18,9 +18,8 @@ models/state.py holds the one dispatch (select_many: these for CUDA
 tensors, its plain form select_many_reference for any other), whose
 outputs equal the plain form's bit for bit. `pack` checks every argument
 (dtype, shape, contiguity, one device, the counts) and builds the
-kernel's argument struct; `lane_select` raises for any device but CUDA.
-The kernel is built with nvcc at first use into build/, keyed by a hash
-of its source.
+kernel's argument struct; `lane_select` raises for any device but CUDA
+and launches nothing when there is nothing to write.
 """
 
 import ctypes
@@ -42,13 +41,6 @@ DTYPES = (torch.float32, torch.int32, torch.int64)
 # one-output select, 4 for more (the best of 1 to 16 for each call of an
 # IMBE and an AMBE step on the card, within 2%: PERF.md, the kernel table)
 SPAN_ONE, SPAN_MANY = 2, 4
-
-SOURCE = build.CSRC / "select.cu"
-
-# kernel launches made by lane_select (the plain form does not count)
-LAUNCHES = 0
-_LIB = None
-
 
 class Args(ctypes.Structure):
     """The kernel's argument struct (csrc/select.cu `Args`), passed by
@@ -76,25 +68,21 @@ class Args(ctypes.Structure):
     ]
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns it with the
-    argument types of its C entry points set, after checking that the C
-    struct's size and field offsets are those of `Args`."""
-    global _LIB
-    if _LIB is None:
-        lib = build.load(SOURCE)
-        lib.mbe_lane_select.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-        lib.mbe_lane_select.restype = ctypes.c_int
-        lib.mbe_lane_select_layout.argtypes = [ctypes.POINTER(ctypes.c_int64)]
-        lib.mbe_lane_select_layout.restype = ctypes.c_int
-        layout = (ctypes.c_int64 * (len(Args._fields_) + 1))()
-        n = lib.mbe_lane_select_layout(layout)
-        want = [ctypes.sizeof(Args)] + [getattr(Args, f).offset for f, _ in Args._fields_]
-        if list(layout[:n]) != want:
-            raise RuntimeError(f"lane_select: the C argument layout {list(layout[:n])} is not "
-                               f"the binding's {want}")
-        _LIB = lib
-    return _LIB
+def _check_layout(lib):
+    """The C struct's size and field offsets must be those of `Args`."""
+    lib.mbe_lane_select_layout.argtypes = [ctypes.POINTER(ctypes.c_int64)]
+    lib.mbe_lane_select_layout.restype = ctypes.c_int
+    layout = (ctypes.c_int64 * (len(Args._fields_) + 1))()
+    n = lib.mbe_lane_select_layout(layout)
+    want = [ctypes.sizeof(Args)] + [getattr(Args, f).offset for f, _ in Args._fields_]
+    if list(layout[:n]) != want:
+        raise RuntimeError(f"lane_select: the C argument layout {list(layout[:n])} is not "
+                           f"the binding's {want}")
+
+
+KERNEL = build.register(build.Kernel("lane_select", build.CSRC / "select.cu", "mbe_lane_select",
+                                     [ctypes.POINTER(Args), build.INT, build.PTR],
+                                     _check_layout))
 
 
 def _constant_bits(v, dtype):
@@ -112,11 +100,13 @@ def _constant_bits(v, dtype):
     return v
 
 
-def _leaf_layouts(selects, c, device):
-    """The shape and dtype of each leaf, from the tensors that give it;
-    every such tensor checked against them."""
+def _leaf_layouts(selects, c):
+    """The shape and dtype of each leaf, from the first tensor that gives
+    it; and (name, tensor, dtype, shape) of every mask, then every tensor
+    leaf, for build.check."""
     n = len(selects[0][1])
     layouts = [None] * n
+    tensors = [("a mask", m, torch.bool, (c,)) for cases, _ in selects for m, _ in cases]
     for cases, default in selects:
         for src in [t for _, t in cases if not isinstance(t, int)] + [default]:
             if len(src) != n:
@@ -124,24 +114,19 @@ def _leaf_layouts(selects, c, device):
             for k, x in enumerate(src):
                 if not isinstance(x, torch.Tensor):
                     continue
-                if x.dtype not in DTYPES:
-                    raise ValueError(f"lane_select: leaf {k} is {x.dtype}, not one of {DTYPES}")
-                if x.dim() not in (1, 2) or x.shape[-1] != c:
-                    raise ValueError(f"lane_select: leaf {k} has shape {tuple(x.shape)}, not "
-                                     f"(C,) or (rows, C) with C = {c}")
                 if layouts[k] is None:
+                    if x.dtype not in DTYPES:
+                        raise ValueError(f"lane_select: leaf {k} is {x.dtype}, not one of "
+                                         f"{DTYPES}")
+                    if x.dim() not in (1, 2) or x.shape[-1] != c:
+                        raise ValueError(f"lane_select: leaf {k} has shape {tuple(x.shape)}, "
+                                         f"not (C,) or (rows, C) with C = {c}")
                     layouts[k] = (tuple(x.shape), x.dtype)
-                elif layouts[k] != (tuple(x.shape), x.dtype):
-                    raise ValueError(f"lane_select: leaf {k} is {x.dtype} {tuple(x.shape)} here, "
-                                     f"{layouts[k][1]} {layouts[k][0]} elsewhere")
-                if not x.is_contiguous():
-                    raise ValueError(f"lane_select: leaf {k} must be contiguous")
-                if x.device != device:
-                    raise ValueError(f"lane_select: leaf {k} is on {x.device}, not {device}")
+                tensors.append((f"leaf {k}", x, layouts[k][1], layouts[k][0]))
     for k, layout in enumerate(layouts):
         if layout is None:
             raise ValueError(f"lane_select: leaf {k} is a constant in every source")
-    return layouts
+    return layouts, tensors
 
 
 def pack(selects):
@@ -156,24 +141,17 @@ def pack(selects):
         if not 1 <= len(cases) <= MAX_CASES:
             raise ValueError(f"lane_select: output {i} has {len(cases)} cases, not 1 to "
                              f"{MAX_CASES}")
-    mask0 = selects[0][0][0][0]
-    device, c = mask0.device, mask0.shape[-1] if mask0.dim() == 1 else -1
-    for i, (cases, _) in enumerate(selects):
-        for m, t in cases:
-            if m.dtype != torch.bool or tuple(m.shape) != (c,):
-                raise ValueError(f"lane_select: a mask must be bool ({c},), got {m.dtype} "
-                                 f"{tuple(m.shape)}")
-            if not m.is_contiguous():
-                raise ValueError("lane_select: a mask must be contiguous")
-            if m.device != device:
-                raise ValueError(f"lane_select: a mask is on {m.device}, not {device}")
+        for _, t in cases:
             if isinstance(t, int) and not 0 <= t < i:
                 raise ValueError(f"lane_select: output {i} names output {t} as a source; "
                                  f"only an earlier output of the call can be one")
     n = len(selects[0][1])
     if not 1 <= n <= MAX_LEAVES:
         raise ValueError(f"lane_select: 1 to {MAX_LEAVES} leaves, got {n}")
-    layouts = _leaf_layouts(selects, c, device)
+    mask0 = selects[0][0][0][0]
+    c = mask0.shape[-1] if mask0.dim() == 1 else -1
+    layouts, tensors = _leaf_layouts(selects, c)
+    device = build.check("lane_select", tensors)
 
     args = Args()
     outputs, written, segments = [], [], []
@@ -227,17 +205,9 @@ def pack(selects):
 def lane_select(selects):
     """The outputs of `selects` (see the module docstring), one launch on
     the current stream of the masks' CUDA device."""
-    global LAUNCHES
-    device = selects[0][0][0][0].device
-    if device.type != "cuda":
-        raise ValueError(f"lane_select: no kernel for device {device}")
     args, vec, outputs = pack(selects)
     if args.rows > 0 and args.c > 0:
-        lib = load_library()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.mbe_lane_select(ctypes.addressof(args), int(vec), stream)
-        if err != 0:
-            raise RuntimeError(f"lane_select kernel launch failed: CUDA error {err}")
-        LAUNCHES += 1
+        KERNEL.launch(selects[0][0][0][0].device, args, int(vec))
+    else:
+        KERNEL.gate(selects[0][0][0][0].device)
     return outputs

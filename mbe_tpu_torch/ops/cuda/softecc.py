@@ -12,11 +12,10 @@ of the row's hard decode, the winning key over every codeword c is
 an int32 whose order is the reference's tie-break (ecc.c:54-67). The
 codebooks are index-systematic (codeword index == data word), so the
 winner's index and diffs unpack from the key by shifts.
-`soft_decode_keys` runs the plain version for CPU tensors and launches
-the kernel for CUDA tensors; there is no fallback between the two.
+`soft_decode_keys` launches the kernel; its one caller, ops/ecc._soft_keys,
+runs `soft_decode_keys_reference` for CPU tensors instead.
 """
 
-import ctypes
 import dataclasses
 from functools import lru_cache
 
@@ -25,8 +24,6 @@ import torch
 
 from ...tables import T, table
 from . import build
-
-SOURCE = build.CSRC / "softecc.cu"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,9 +43,9 @@ CODES = {
     "ham7100": Code(15, 0, 16, 15, 11, "hamming_codewords_7100", 1),
 }
 
-# kernel launches made by soft_decode_keys (the plain version does not count)
-LAUNCHES = 0
-_FN = None
+KERNEL = build.register(build.Kernel("soft_decode", build.CSRC / "softecc.cu",
+                                     "mbe_soft_decode_keys",
+                                     [build.PTR] * 6 + [build.INT, build.INT, build.PTR], None))
 
 
 def soft_decode_keys_reference(bits, rel, idx_hard, code):
@@ -119,26 +116,6 @@ def _kernel_tables(code, device):
             torch.from_numpy(packed).to(device))
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the C entry
-    point `mbe_soft_decode_keys` with its argument types set."""
-    global _FN
-    if _FN is None:
-        fn = build.load(SOURCE).mbe_soft_decode_keys
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _check(name, x, shape, device):
-    if x.device != device or x.dtype != torch.int32 or tuple(x.shape) != shape:
-        raise ValueError(f"soft_decode_keys: {name} must be int32 {shape} on {device}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"soft_decode_keys: {name} must be contiguous")
-
-
 def soft_decode_keys(bits, rel, idx_hard, code):
     """Winning int32 keys [R] of the exhaustive soft ML decode.
 
@@ -148,27 +125,14 @@ def soft_decode_keys(bits, rel, idx_hard, code):
       idx_hard: [R] int32 — the codeword index of each row's hard decode.
       code: "golay", "hamstd" (standard Hamming generator) or "ham7100".
     """
-    global LAUNCHES
     if code not in CODES:
         raise ValueError(f"soft_decode_keys: unknown code {code!r}")
-    device = bits.device
-    if device.type == "cpu":
-        return soft_decode_keys_reference(bits, rel, idx_hard, code)
-    if device.type != "cuda":
-        raise ValueError(f"soft_decode_keys: no kernel for device {device}")
     spec = CODES[code]
     r = bits.shape[0]
-    _check("bits", bits, (r, spec.n), device)
-    _check("rel", rel, (r, spec.n), device)
-    _check("idx_hard", idx_hard, (r,), device)
-    fn = load_library()
-    tab, packed = _kernel_tables(code, device)
+    device = build.check("soft_decode_keys", [("bits", bits, torch.int32, (r, spec.n)),
+                                              ("rel", rel, torch.int32, (r, spec.n)),
+                                              ("idx_hard", idx_hard, torch.int32, (r,))])
     key = torch.empty((r,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(bits.data_ptr(), rel.data_ptr(), idx_hard.data_ptr(), tab.data_ptr(),
-                 packed.data_ptr(), key.data_ptr(), r, spec.kernel_id, stream)
-    if err != 0:
-        raise RuntimeError(f"soft_decode_keys kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    KERNEL.launch(device, bits, rel, idx_hard, *_kernel_tables(code, device), key, r,
+                  spec.kernel_id)
     return key

@@ -5,12 +5,11 @@ version.
 Per channel: the windowed LCG noise's 256-point real DFT, per-band
 energies over the bins of each band, band scalors 146.17696*Ml/sqrt(mean)
 on the unvoiced bands 1..L, the scaled inverse DFT, and the WOLA combine
-with the previous frame's Uw. `unvoiced_wola` runs the plain version for
-CPU tensors and launches the kernel for CUDA tensors; there is no fallback
-between the two. The kernel is built with nvcc at first use into build/.
+with the previous frame's Uw. `unvoiced_wola` launches the kernel; its
+one caller, ops/synth.unvoiced_fft, runs `unvoiced_wola_reference` for
+CPU tensors instead.
 """
 
-import ctypes
 from functools import lru_cache
 
 import numpy as np
@@ -28,11 +27,9 @@ UW = 128
 UNVOICED_SCALE_COEFF = float(np.float32(146.17696))
 M_256_OVER_2PI = float(np.float32(256.0 / (2.0 * 3.14159265358979323846)))
 
-SOURCE = build.CSRC / "unvoiced.cu"
-
-# kernel launches made by unvoiced_wola (the plain version does not count)
-LAUNCHES = 0
-_FN = None
+KERNEL = build.register(build.Kernel("unvoiced_wola", build.CSRC / "unvoiced.cu",
+                                     "mbe_unvoiced_wola",
+                                     [build.PTR] * 13 + [build.INT, build.PTR], None))
 
 
 def _wola_weights():
@@ -137,26 +134,6 @@ def unvoiced_wola_reference(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_bu
     return add, uw_out[UW:, :]
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the C entry
-    point `mbe_unvoiced_wola` with its argument types set."""
-    global _FN
-    if _FN is None:
-        fn = build.load(SOURCE).mbe_unvoiced_wola
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _check(name, x, dtype, shape, device):
-    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
-        raise ValueError(f"unvoiced_wola: {name} must be {dtype} {shape} on {device}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"unvoiced_wola: {name} must be contiguous")
-
-
 def unvoiced_wola(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer):
     """Unvoiced component: (add [160, C], new_previousUw [128, C]) f32.
 
@@ -167,30 +144,15 @@ def unvoiced_wola(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer):
         (mbe_unvoiced_fft.c:398-404);
       noise_buffer [256, C] f32: the frame's LCG samples (unwindowed).
     """
-    global LAUNCHES
-    args = (cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer)
-    device = cur_w0.device
-    if device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unvoiced_wola: no kernel for device {device}")
-    c = cur_w0.shape[0]
+    c = cur_w0.shape[-1]
     f32, i32 = torch.float32, torch.int32
+    args = (cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer)
     specs = (("cur_w0", f32, (c,)), ("cur_L", i32, (c,)), ("cur_Ml", f32, (NBANDS, c)),
              ("cur_Vl", i32, (NBANDS, c)), ("previous_uw", f32, (UW, c)),
              ("noise_buffer", f32, (FFT_SIZE, c)))
-    for x, (name, dtype, shape) in zip(args, specs):
-        _check(name, x, dtype, shape, device)
-    if device.type == "cpu":
-        return unvoiced_wola_reference(*args)
-    fn = load_library()
-    win256, w_prev, w_curr, denom = _windows(device)
+    device = build.check("unvoiced_wola", [(name, x, dtype, shape)
+                                           for x, (name, dtype, shape) in zip(args, specs)])
     add = torch.empty((FRAME, c), dtype=f32, device=device)
     new_uw = torch.empty((UW, c), dtype=f32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(x.data_ptr() for x in args), _cos_table(device).data_ptr(),
-                 win256.data_ptr(), w_prev.data_ptr(), w_curr.data_ptr(), denom.data_ptr(),
-                 add.data_ptr(), new_uw.data_ptr(), c, stream)
-    if err != 0:
-        raise RuntimeError(f"unvoiced_wola kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    KERNEL.launch(device, *args, _cos_table(device), *_windows(device), add, new_uw, c)
     return add, new_uw

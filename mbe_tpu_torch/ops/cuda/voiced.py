@@ -5,13 +5,10 @@ and its plain PyTorch version.
               + w_cur[n]  * sum_l g_cur *cos(phi_cur0 + n*s_cur)
               + sum_{l<7} (a0 + n*da) * cos(phi0 + alpha*n + q*n^2)
 
-for n = 0..159 (mbelib.c:953-1018). `voiced_sums` runs the plain version
-for CPU tensors and launches the kernel for CUDA tensors; there is no
-fallback between the two. The kernel is built with nvcc at first use
-into build/ at the repository root, keyed by a hash of its source.
+for n = 0..159 (mbelib.c:953-1018). `voiced_sums` launches the kernel;
+its one caller, ops/synth.render_voiced, runs `voiced_sums_reference` for
+CPU tensors instead.
 """
-
-import ctypes
 
 import torch
 
@@ -21,11 +18,8 @@ FRAME = 160
 NHARM = 56
 NINTERP = 7
 
-SOURCE = build.CSRC / "voiced.cu"
-
-# kernel launches made by voiced_sums (the plain version does not count)
-LAUNCHES = 0
-_FN = None
+KERNEL = build.register(build.Kernel("voiced_sums", build.CSRC / "voiced.cu", "mbe_voiced_sums",
+                                     [build.PTR] * 14 + [build.INT, build.PTR], None))
 
 
 def voiced_sums_reference(gain_prev, phi_prev, step_prev, gain_cur, phi_cur0,
@@ -46,26 +40,6 @@ def voiced_sums_reference(gain_prev, phi_prev, step_prev, gain_cur, phi_cur0,
             + w_cur[:, None] * bank(gain_cur, phi_cur0, step_cur) + interp)
 
 
-def load_library():
-    """Build (if needed) and load the kernel library; returns the C entry
-    point `mbe_voiced_sums` with its argument types set."""
-    global _FN
-    if _FN is None:
-        fn = build.load(SOURCE).mbe_voiced_sums
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN = fn
-    return _FN
-
-
-def _check(name, x, shape, device):
-    if x.device != device or x.dtype != torch.float32 or tuple(x.shape) != shape:
-        raise ValueError(f"voiced_sums: {name} must be float32 {shape} on {device}, "
-                         f"got {x.dtype} {tuple(x.shape)} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"voiced_sums: {name} must be contiguous")
-
-
 def voiced_sums(gain_prev, phi_prev, step_prev, gain_cur, phi_cur0, step_cur,
                 interp_amp0, interp_damp, interp_phi0, interp_alpha, interp_q,
                 w_prev, w_cur):
@@ -80,25 +54,13 @@ def voiced_sums(gain_prev, phi_prev, step_prev, gain_cur, phi_cur0, step_cur,
       interp_phi0/interp_alpha/interp_q [7, C]: its quadratic phase.
       w_prev/w_cur [160]: the synthesis windows Ws[n+160] and Ws[n].
     """
-    global LAUNCHES
     args = (gain_prev, phi_prev, step_prev, gain_cur, phi_cur0, step_cur,
             interp_amp0, interp_damp, interp_phi0, interp_alpha, interp_q,
             w_prev, w_cur)
-    device = gain_prev.device
-    if device.type == "cpu":
-        return voiced_sums_reference(*args)
-    if device.type != "cuda":
-        raise ValueError(f"voiced_sums: no kernel for device {device}")
-    c = gain_prev.shape[1]
+    c = gain_prev.shape[-1]
     shapes = [(NHARM, c)] * 6 + [(NINTERP, c)] * 5 + [(FRAME,)] * 2
-    for i, (x, shape) in enumerate(zip(args, shapes)):
-        _check(f"argument {i}", x, shape, device)
-    fn = load_library()
+    device = build.check("voiced_sums", [(f"argument {i}", x, torch.float32, shape)
+                                         for i, (x, shape) in enumerate(zip(args, shapes))])
     out = torch.empty((FRAME, c), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*(x.data_ptr() for x in args), out.data_ptr(), c, stream)
-    if err != 0:
-        raise RuntimeError(f"voiced_sums kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    KERNEL.launch(device, *args, out, c)
     return out

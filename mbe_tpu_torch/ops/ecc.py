@@ -150,10 +150,13 @@ def hard_index(bits, code):
 
 
 def _soft_keys(bits, rel, code):
-    """softecc.soft_decode_keys over any leading batch shape, with the
-    blocks' hard decode as idx_hard."""
+    """softecc.soft_decode_keys, the kernel, for CUDA tensors and its plain
+    form for CPU tensors, over any leading batch shape, with the blocks'
+    hard decode as idx_hard."""
     n = bits.shape[-1]
-    key = softecc.soft_decode_keys(
+    decode = (softecc.soft_decode_keys_reference if bits.device.type == "cpu"
+              else softecc.soft_decode_keys)
+    key = decode(
         bits.to(torch.int32).reshape(-1, n).contiguous(),
         rel.to(torch.int32).reshape(-1, n).contiguous(),
         hard_index(bits, code).reshape(-1).contiguous(), code)

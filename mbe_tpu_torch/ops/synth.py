@@ -5,7 +5,7 @@ mbe_unvoiced_fft.c:714-761).
 Band arrays are [57, C], buffers [256, C], audio [160, C]. On the GPU the
 voiced bank runs in the hand-written kernel of ops/cuda/voiced.py, the
 unvoiced stage in that of ops/cuda/unvoiced.py and the tone in that of
-ops/cuda/sources.py.
+ops/cuda/sources.py; CPU tensors take their plain forms.
 """
 
 from functools import lru_cache
@@ -15,8 +15,7 @@ import torch
 
 from ..tables import T, table
 from .bits import field, lookup
-from .cuda import sources, unvoiced
-from .cuda.voiced import voiced_sums
+from .cuda import sources, unvoiced, voiced
 
 FRAME = 160
 TWO_PI = float(np.float32(2.0 * np.pi))
@@ -103,7 +102,8 @@ def render_voiced(cur_w0, cur_Ml, cur_Vl, cur_PHIl,
     stable pitch (mbelib.c:953-968), as the inputs of voiced_sums: gains
     with every mask folded in, start phases, phase steps, and the
     interpolated path's amplitude lerp and quadratic phase
-    theta_n = phi0 + alpha*n + q*n^2."""
+    theta_n = phi0 + alpha*n + q*n^2: the kernel for CUDA tensors, the
+    plain form for CPU tensors."""
     ws = table("Ws", cur_w0.device)  # [321]
     lcol = torch.arange(1, 57, device=cur_w0.device, dtype=torch.float32)[:, None]
     NI = 7
@@ -127,7 +127,8 @@ def render_voiced(cur_w0, cur_Ml, cur_Vl, cur_PHIl,
     gi2 = torch.where(use_interp7 & active[:NI], 2.0, 0.0)
 
     step_cur = cur_w0[None, :] * lcol
-    return voiced_sums(
+    sums = voiced.voiced_sums_reference if cur_w0.device.type == "cpu" else voiced.voiced_sums
+    return sums(
         gain_prev, prev_PHIl[1:, :].contiguous(), prev_w0[None, :] * lcol,
         gain_cur, cur_PHIl[1:, :] - step_cur * 160.0, step_cur,
         gi2 * prev_Ml[1:NI + 1, :],
@@ -145,8 +146,11 @@ def render_voiced(cur_w0, cur_Ml, cur_Vl, cur_PHIl,
 def unvoiced_fft(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer):
     """JMBE #117-126. Returns (unvoiced_add [160, C], new_previousUw
     [128, C]); band inputs [57, C], noise_buffer [256, C]. The whole stage
-    is ops/cuda/unvoiced.unvoiced_wola: the hand-written kernel on the GPU,
-    its plain version on the CPU."""
+    is ops/cuda/unvoiced.unvoiced_wola, the hand-written kernel, for CUDA
+    tensors, and its plain form for CPU tensors."""
+    if cur_w0.device.type == "cpu":
+        return unvoiced.unvoiced_wola_reference(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw,
+                                                noise_buffer)
     return unvoiced.unvoiced_wola(cur_w0, cur_L, cur_Ml, cur_Vl, previous_uw, noise_buffer)
 
 

@@ -12,11 +12,12 @@ that outlive the graph (its static inputs and state); what it returns
 lives in the graph's private memory pool, and each replay overwrites it.
 
 The hand-written kernels count their launches in Python
-(`ops/cuda/*.LAUNCHES`), and a replay runs no Python. The increase of each
-counter during the capture is the number of that kernel's nodes in the
-graph: it is taken back after the capture, which launches nothing, and
-added on every replay. A capture that fails raises; nothing falls back to
-eager execution. Each replay is a host span, `mbe.graph.replay`
+(`ops/cuda/build.LAUNCHES`), and a replay runs no Python. The increase of
+each count during the capture is the number of that kernel's nodes in the
+graph (a count first made during the capture starts from 0): it is taken
+back after the capture, which launches nothing, and added on every
+replay. A capture that fails raises; nothing falls back to eager
+execution. Each replay is a host span, `mbe.graph.replay`
 (utils/spans.py).
 """
 
@@ -24,10 +25,8 @@ import dataclasses
 
 import torch
 
-from ..ops.cuda import select, softecc, sources, unvoiced, voiced
+from ..ops.cuda.build import LAUNCHES, counts
 from .spans import span
-
-KERNELS = (voiced, softecc, unvoiced, sources, select)
 
 
 def leaves(tree):
@@ -79,21 +78,24 @@ class Captured:
             with torch.cuda.stream(side):
                 warmup()
             torch.cuda.current_stream().wait_stream(side)
-            before = [m.LAUNCHES for m in KERNELS]
+            before = counts()
             self.graph = torch.cuda.CUDAGraph()
             # on the side stream, made on this device: torch.cuda.graph's own
             # default stream is made once, on the device current at the first
             # capture in the process, and would move a later capture there
             with torch.cuda.graph(self.graph, stream=side):
                 self.outputs = fn()
-        self.launches = [m.LAUNCHES - b for m, b in zip(KERNELS, before)]
-        for m, b in zip(KERNELS, before):
-            m.LAUNCHES = b
+        self.launches = []  # (count, launches in the graph), the nonzero ones
+        for name, count in LAUNCHES.items():
+            start = before.get(name, 0)
+            if count.n != start:
+                self.launches.append((count, count.n - start))
+            count.n = start
 
     def replay(self):
-        """Replay on the current stream of `device`; the kernels' counters
+        """Replay on the current stream of `device`; the kernels' counts
         advance by their launches in the graph."""
         with span("mbe.graph.replay"), torch.cuda.device(self.device):
             self.graph.replay()
-        for m, n in zip(KERNELS, self.launches):
-            m.LAUNCHES += n
+        for count, n in self.launches:
+            count.n += n

@@ -103,22 +103,23 @@ def test_frame_decode_vs_jax(soft):
 
 
 def test_soft_frame_runs_two_soft_decodes():
-    """A soft AMBE frame decodes through soft_decode_keys twice, C0 then
-    C1 (the demod seed comes from the decoded C0)."""
+    """A soft AMBE frame decodes through the soft decode (its plain form,
+    soft_decode_keys_reference, on the CPU) twice, C0 then C1 (the demod
+    seed comes from the decoded C0)."""
     calls = []
-    real = softecc.soft_decode_keys
+    real = softecc.soft_decode_keys_reference
 
     def counting(bits, rel, idx_hard, code):
         calls.append((code, tuple(bits.shape)))
         return real(bits, rel, idx_hard, code)
 
-    softecc.soft_decode_keys = counting
+    softecc.soft_decode_keys_reference = counting
     try:
         for codec in CODECS:
             pipeline.step(codec, torch.zeros((5, 4, 24), dtype=torch.int32),
                           st.init_state(5, device="cpu"), torch.full((5, 4, 24), 100))
     finally:
-        softecc.soft_decode_keys = real
+        softecc.soft_decode_keys_reference = real
     assert calls == [("golay", (5, 23))] * 4
 
 

@@ -23,12 +23,18 @@ import torch
 from mbe_tpu_torch import pipeline
 from mbe_tpu_torch.models import state as st
 from mbe_tpu_torch.ops import ecc, noise, synth
-from mbe_tpu_torch.ops.cuda import softecc, sources, unvoiced, voiced
+from mbe_tpu_torch.ops.cuda import build, softecc, sources, unvoiced, voiced
 
 torch.set_num_threads(1)
 
 VECTORS = Path(__file__).resolve().parent / "vectors"
 RES_KEYS = ("c0_errors", "protected_errors", "c4_errors", "total_errors")
+B123 = ("voiced_sums", "unvoiced_wola", "soft_decode")  # the kernels' launch counters
+
+
+def _counts(*counters):
+    """The registry's launch counts of `counters` (ops/cuda/build.LAUNCHES)."""
+    return np.array([build.LAUNCHES[k].n for k in counters])
 
 
 @pytest.fixture
@@ -77,10 +83,10 @@ def test_voiced_kernel_matches_plain(cuda_device, c, edge):
     edge lanes: max |err| / max |ref| < 2e-4 (the recurrence drift bound
     of the TPU kernel), over all lanes and over the edge lanes alone."""
     args = _kernel_inputs(c, cuda_device, edge)
-    before = voiced.LAUNCHES
+    before = build.LAUNCHES["voiced_sums"].n
     out = voiced.voiced_sums(*args)
     torch.cuda.synchronize()
-    assert voiced.LAUNCHES == before + 1
+    assert build.LAUNCHES["voiced_sums"].n == before + 1
     ref = voiced.voiced_sums_reference(*args)
     assert ((out - ref).abs().max() / ref.abs().max()).item() < 2e-4
     if edge:
@@ -112,7 +118,7 @@ def _golden_on_card(device, name, codec, soft, step=None):
     state = st.init_state(C, rng_seed=vec["seeds"], device=device)
     frames = torch.as_tensor(vec["frames"], device=device)
     rel = torch.as_tensor(vec["rel"], device=device) if soft else None
-    before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
+    before = _counts(*B123)
     pcm16 = []
     for t in range(T):
         r = None if rel is None else rel[t]
@@ -126,8 +132,7 @@ def _golden_on_card(device, name, codec, soft, step=None):
             assert _snr_db(vec["pcm"][t, i], audio[i].cpu().numpy()) >= 60.0, (t, i)
         pcm16.append(synth.float_to_short(audio).cpu().numpy())
     b2 = (3 if codec.startswith("imbe") else 2) * T if soft else 0
-    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
-            softecc.LAUNCHES - before[2]) == (T, T, b2)
+    assert tuple(_counts(*B123) - before) == (T, T, b2)
     assert _snr_db(vec["pcm16"], np.stack(pcm16)) >= 60.0
 
 
@@ -162,10 +167,10 @@ def test_softecc_kernel_matches_plain(cuda_device, code, rows):
     the int32 keys are equal (tolerance 0), which also shows that the
     tensor cores accumulate the bf16 products exactly."""
     bits, rel, idx = _soft_inputs(code, rows, cuda_device)
-    before = softecc.LAUNCHES
+    before = build.LAUNCHES["soft_decode"].n
     key = softecc.soft_decode_keys(bits, rel, idx, code)
     torch.cuda.synchronize()
-    assert softecc.LAUNCHES == before + 1
+    assert build.LAUNCHES["soft_decode"].n == before + 1
     for lo in range(0, rows, 16384):  # the plain version holds [rows, ncw] tensors
         ref = softecc.soft_decode_keys_reference(bits[lo:lo + 16384], rel[lo:lo + 16384],
                                                  idx[lo:lo + 16384], code)
@@ -224,10 +229,10 @@ def test_unvoiced_kernel_matches_plain(cuda_device, c):
     max |ref| < 1e-4 on add and on the new previousUw; the w0 = 0 lanes
     give a zero new previousUw."""
     args = _unvoiced_inputs(c, cuda_device)
-    before = unvoiced.LAUNCHES
+    before = build.LAUNCHES["unvoiced_wola"].n
     out = unvoiced.unvoiced_wola(*args)
     torch.cuda.synchronize()
-    assert unvoiced.LAUNCHES == before + 1
+    assert build.LAUNCHES["unvoiced_wola"].n == before + 1
     ref = unvoiced.unvoiced_wola_reference(*args)
     for o, r in zip(out, ref):
         assert ((o - r).abs().max() / r.abs().max()).item() < 1e-4
@@ -328,10 +333,10 @@ def test_sources_kernel_matches_plain(cuda_device, entry, c):
     args = {"comfort_noise": lambda: [_comfort_limbs(c, cuda_device)],
             "generate_noise_with_overlap": lambda: _lcg_inputs(c, cuda_device),
             "render_tone": lambda: _tone_inputs(c, cuda_device)}[entry]()
-    before = sources.LAUNCHES
+    before = build.LAUNCHES["sources"].n
     out = SOURCES_DISPATCH[entry](*args)
     torch.cuda.synchronize()
-    assert sources.LAUNCHES == before + 1
+    assert build.LAUNCHES["sources"].n == before + 1
     _assert_equal_outputs(out, SOURCES_PLAIN[entry](*args))
 
 
@@ -396,8 +401,7 @@ def _random_frames(codec, T, C, seed):
 def test_sources_nodes_per_captured_step(cuda_device, codec, tones, nodes):
     """A CompiledStep's graph holds the sources kernel's launches: comfort
     noise and the LCG buffer in every codec, the tone where tones are
-    rendered; each replay advances LAUNCHES by as many."""
-    from mbe_tpu_torch.utils import graphs
+    rendered; each replay advances its count by as many."""
     from mbe_tpu_torch.utils.config import DecoderConfig
     C = 1000
     config = DecoderConfig(codec=codec, tones_enabled=tones)
@@ -405,12 +409,12 @@ def test_sources_nodes_per_captured_step(cuda_device, codec, tones, nodes):
         codec, st.init_state(C, rng_seed=np.arange(1, C + 1, dtype=np.uint32),
                              carry_enh=codec.startswith("ambe"), device=cuda_device),
         config=config)
-    assert dict(zip(graphs.KERNELS, compiled._graph.launches))[sources] == nodes
+    assert dict(compiled._graph.launches)[build.LAUNCHES["sources"]] == nodes
     frames = _random_frames(codec, 3, C, 3)
-    before = sources.LAUNCHES
+    before = build.LAUNCHES["sources"].n
     for t in range(3):
         compiled(frames[t])
-    assert sources.LAUNCHES - before == 3 * nodes
+    assert build.LAUNCHES["sources"].n - before == 3 * nodes
 
 
 @pytest.mark.cuda
@@ -432,8 +436,8 @@ def test_sources_run_sequence_equals_plain_forms(cuda_device, codec, monkeypatch
                                  device=cuda_device)
 
         pipeline.compiled_step(codec, init())  # capture before counting
-        before = sources.LAUNCHES
-        return pipeline.run_sequence(codec, frames, init()), sources.LAUNCHES - before
+        before = build.LAUNCHES["sources"].n
+        return pipeline.run_sequence(codec, frames, init()), build.LAUNCHES["sources"].n - before
 
     kernel, launches = run()
     assert launches == T * (3 if codec == "ambe2450" else 2)
@@ -531,14 +535,13 @@ def test_lane_select_matches_plain(cuda_device, site, c):
     which launches lane_select once, equals the plain where chain on the
     card bit for bit, with random, all-true, all-false and overlapping
     masks."""
-    from mbe_tpu_torch.ops.cuda import select
     rng = np.random.default_rng(c + SELECT_SITES.index(site))
     for pattern in range(4):
         selects = _select_site(site, rng, c, cuda_device, pattern)
-        before = select.LAUNCHES
+        before = build.LAUNCHES["lane_select"].n
         got = st.select_many(selects)
         torch.cuda.synchronize()
-        assert select.LAUNCHES == before + 1
+        assert build.LAUNCHES["lane_select"].n == before + 1
         _assert_same_parms(got, st.select_many_reference(selects))
 
 
@@ -608,7 +611,6 @@ def test_lane_select_run_sequence_equals_plain(cuda_device, codec, soft, monkeyp
     place of the kernel, and the kernel ran 1 (IMBE) or 4 (AMBE) times a
     step."""
     from mbe_tpu_torch.models import ambe
-    from mbe_tpu_torch.ops.cuda import select
     C, T = 2052, 20
     frames, rel = _select_frames(codec, soft, T, C, cuda_device)
     seeds = np.arange(1, C + 1, dtype=np.uint32)
@@ -621,8 +623,9 @@ def test_lane_select_run_sequence_equals_plain(cuda_device, codec, soft, monkeyp
                                  device=cuda_device)
 
         pipeline.compiled_step(codec, init(), soft)  # capture before counting
-        before = select.LAUNCHES
-        return pipeline.run_sequence(codec, frames, init(), rel), select.LAUNCHES - before
+        before = build.LAUNCHES["lane_select"].n
+        out = pipeline.run_sequence(codec, frames, init(), rel)
+        return out, build.LAUNCHES["lane_select"].n - before
 
     kernel, launches = run()
     assert launches == T * SELECT_PER_STEP[codec]
@@ -644,26 +647,23 @@ def test_lane_select_run_sequence_equals_plain(cuda_device, codec, soft, monkeyp
 @pytest.mark.parametrize("codec", pipeline.CODECS)
 def test_lane_select_nodes_per_captured_step(cuda_device, codec):
     """A CompiledStep's graph holds lane_select's launches, 1 per IMBE step
-    and 4 per AMBE one; each replay advances LAUNCHES by as many."""
-    from mbe_tpu_torch.ops.cuda import select
-    from mbe_tpu_torch.utils import graphs
+    and 4 per AMBE one; each replay advances its count by as many."""
     C = 1000
     compiled = pipeline.CompiledStep(
         codec, st.init_state(C, carry_enh=codec.startswith("ambe"), device=cuda_device))
-    nodes = dict(zip(graphs.KERNELS, compiled._graph.launches))[select]
+    nodes = dict(compiled._graph.launches)[build.LAUNCHES["lane_select"]]
     assert nodes == SELECT_PER_STEP[codec]
     frames = _random_frames(codec, 3, C, 3)
-    before = select.LAUNCHES
+    before = build.LAUNCHES["lane_select"].n
     for t in range(3):
         compiled(frames[t])
-    assert select.LAUNCHES - before == 3 * nodes
+    assert build.LAUNCHES["lane_select"].n - before == 3 * nodes
 
 
 @pytest.mark.cuda
 def test_lane_select_rejects_bad_inputs(cuda_device):
     """Wrong dtype, device, shape, a non-contiguous leaf or mask: ValueError
     before any launch."""
-    from mbe_tpu_torch.ops.cuda import select
     rng = np.random.default_rng(6)
     a, b = _card_parms(rng, 64, cuda_device), _card_parms(rng, 64, cuda_device)
     m = torch.as_tensor(rng.random(64) < 0.5, device=cuda_device)
@@ -671,7 +671,7 @@ def test_lane_select_rejects_bad_inputs(cuda_device):
     def call(mask=m, **kw):
         return st.select_many([([(mask, dataclasses.replace(b, **kw))], a)])
 
-    before = select.LAUNCHES
+    before = build.LAUNCHES["lane_select"].n
     with pytest.raises(ValueError, match="float64"):
         call(w0=a.w0.double())
     with pytest.raises(ValueError, match="cpu"):
@@ -684,7 +684,7 @@ def test_lane_select_rejects_bad_inputs(cuda_device):
         call(mask=m.int())
     with pytest.raises(ValueError, match="contiguous"):
         call(mask=torch.zeros((64, 2), dtype=torch.bool, device=cuda_device)[:, 0])
-    assert select.LAUNCHES == before
+    assert build.LAUNCHES["lane_select"].n == before
 
 
 # --- the public API, checkpoints and streaming on the card ---------------------
@@ -713,7 +713,7 @@ def test_api_dataf_on_card(cuda_device):
     vec = dict(np.load(VECTORS / "fsm_imbe7200.npz"))
     T = vec["dbits"].shape[0]
     state = api.init_mbe_parms(1, np.uint32(vec["seed"]), device=cuda_device)
-    before = (voiced.LAUNCHES, unvoiced.LAUNCHES)
+    before = _counts("voiced_sums", "unvoiced_wola")
     for t in range(T):
         audio, state, fsm = api.process_imbe4400_dataf(
             torch.as_tensor(vec["dbits"][t][None], device=cuda_device), state,
@@ -722,7 +722,7 @@ def test_api_dataf_on_card(cuda_device):
                  | api.PROCESS_FLAG_MUTE * int(fsm["mute"][0]))
         assert flags == int(vec["flags"][t]), t
         assert _snr_db(vec["pcm"][t], audio[0].cpu().numpy()) >= 60.0, t
-    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1]) == (T, T)
+    assert tuple(_counts("voiced_sums", "unvoiced_wola") - before) == (T, T)
 
 
 @pytest.mark.cuda
@@ -907,22 +907,20 @@ def test_graph_replay_bit_exact_on_card(cuda_device, name, codec, soft):
     per_step = (1, 1, (3 if codec.startswith("imbe") else 2) if soft else 0)
     if name.startswith("long"):
         pipeline.compiled_step(codec, init())  # capture before counting
-        before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
+        before = _counts(*B123)
         out, pcm, results = pipeline.run_sequence(codec, frames, init())
         assert torch.equal(pcm, torch.stack([e[0] for e in eager]))
         for k in results:
             assert torch.equal(results[k], torch.stack([e[1][k] for e in eager])), k
     else:
         compiled = pipeline.CompiledStep(codec, init(), soft=soft)
-        before = (voiced.LAUNCHES, unvoiced.LAUNCHES, softecc.LAUNCHES)
+        before = _counts(*B123)
         for t in range(T):
             out, audio, res = compiled(frames[t], None if rel is None else rel[t])
-            assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
-                    softecc.LAUNCHES - before[2]) == tuple((t + 1) * n for n in per_step)
+            assert tuple(_counts(*B123) - before) == tuple((t + 1) * n for n in per_step)
             assert torch.equal(audio, eager[t][0]) and torch.equal(compiled.dbits, eager[t][2])
             assert all(torch.equal(res[k], eager[t][1][k]) for k in res), t
-    assert (voiced.LAUNCHES - before[0], unvoiced.LAUNCHES - before[1],
-            softecc.LAUNCHES - before[2]) == tuple(T * n for n in per_step)
+    assert tuple(_counts(*B123) - before) == tuple(T * n for n in per_step)
     assert all(torch.equal(a, b) for a, b in zip(_leaves(out), _leaves(state)))
 
 

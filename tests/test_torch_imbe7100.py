@@ -196,22 +196,23 @@ def test_soft_lane_validation_and_clamp(vectors, codec):
 
 
 def test_soft_step_runs_three_soft_decodes():
-    """One soft step decodes through soft_decode_keys three times (C0,
-    the data Golay blocks, the Hamming blocks), for both codecs."""
+    """One soft step decodes through the soft decode (its plain form,
+    soft_decode_keys_reference, on the CPU) three times (C0, the data
+    Golay blocks, the Hamming blocks), for both codecs."""
     calls = []
-    real = softecc.soft_decode_keys
+    real = softecc.soft_decode_keys_reference
 
     def counting(bits, rel, idx_hard, code):
         calls.append((code, tuple(bits.shape)))
         return real(bits, rel, idx_hard, code)
 
-    softecc.soft_decode_keys = counting
+    softecc.soft_decode_keys_reference = counting
     try:
         for codec, rows in (("imbe7200", 8), ("imbe7100", 7)):
             shape = (5, rows, 23 if codec == "imbe7200" else 24)
             pipeline.step(codec, torch.zeros(shape, dtype=torch.int32),
                           st.init_state(5, device="cpu"), torch.full(shape, 100))
     finally:
-        softecc.soft_decode_keys = real
+        softecc.soft_decode_keys_reference = real
     assert calls == [("golay", (5, 23)), ("golay", (15, 23)), ("hamstd", (15, 15)),
                      ("golay", (5, 23)), ("golay", (15, 23)), ("ham7100", (10, 15))]

@@ -15,7 +15,7 @@ from mbe_tpu.ops.pallas import voiced as jvoiced
 from mbe_tpu_torch.models import speech
 from mbe_tpu_torch.models import state as st
 from mbe_tpu_torch.ops import noise, synth
-from mbe_tpu_torch.ops.cuda import unvoiced, voiced
+from mbe_tpu_torch.ops.cuda import build, unvoiced, voiced
 
 torch.set_num_threads(1)
 
@@ -200,19 +200,27 @@ def test_voiced_reference_matches_oracle_ragged(c):
     tail): plain version vs the float64 oracle at 1e-5 relative (float32
     phase rounding at arguments up to ~500 rad)."""
     bank, win = _kernel_inputs(c, c)
-    out = voiced.voiced_sums(*map(torch.from_numpy, bank + win)).numpy()
+    out = voiced.voiced_sums_reference(*map(torch.from_numpy, bank + win)).numpy()
     ref = _oracle(bank, win)
     assert out.shape == (160, c)
     assert np.abs(out - ref).max() / np.abs(ref).max() < 1e-5
 
 
-def test_voiced_sums_dispatch_by_device():
-    """CPU tensors take the plain version (no launch counted); a device
-    with no kernel raises instead of falling back."""
+def test_voiced_sums_dispatch_by_device(monkeypatch):
+    """synth.render_voiced, the kernel's one caller, runs the plain version
+    for CPU tensors (no launch counted) and the kernel for any other
+    device, whose entry raises for a device with no kernel (the CPU, meta)
+    instead of falling back."""
+    plain, calls = voiced.voiced_sums_reference, []
+    monkeypatch.setattr(voiced, "voiced_sums_reference",
+                        lambda *a: calls.append(a) or plain(*a))
+    args = [torch.from_numpy(a) for a in _render_args(16, 3)]
+    before = build.LAUNCHES["voiced_sums"].n
+    out = synth.render_voiced(*args)
+    assert len(calls) == 1 and torch.equal(out, plain(*calls[0]))
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        synth.render_voiced(*(a.to("meta") for a in args))
     bank, win = _kernel_inputs(16, 3)
-    before = voiced.LAUNCHES
-    voiced.voiced_sums(*map(torch.from_numpy, bank + win))
-    assert voiced.LAUNCHES == before
-    meta = [torch.from_numpy(x).to("meta") for x in bank + win]
-    with pytest.raises(ValueError, match="no kernel"):
-        voiced.voiced_sums(*meta)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        voiced.voiced_sums(*map(torch.from_numpy, bank + win))
+    assert len(calls) == 1 and build.LAUNCHES["voiced_sums"].n == before

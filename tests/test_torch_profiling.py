@@ -3,25 +3,33 @@ CPU: the slope of a body of known cost, the host readback and the trace
 file. The card's graphed device_time (a bf16 matmul against its peak) is
 in tests/test_torch_cuda.py and chip_smoke.py phase 8."""
 
-import time
-
 import torch
 
 from mbe_tpu_torch.models import state as st
 from mbe_tpu_torch.utils import profiling
 
 
-def test_device_time_reads_a_known_cost():
-    """A body that sleeps 2 ms per iteration reads 2 ms +- 0.5 by the slope
-    (the per-run constant, here a 20 ms sleep in the readback's place,
-    cancels); the carry passes through and carry0 is left as it was."""
+def test_device_time_reads_a_known_cost(monkeypatch):
+    """On a fake clock that each body call advances by 2 ms and each
+    readback (`force`) by 20 ms, the slope reads 2 ms (the per-run
+    constant cancels); the carry passes through and carry0 is left as it
+    was."""
+    now_ms = [0]
+    real_force = profiling.force
+
     def body(c):
-        time.sleep(0.002)
+        now_ms[0] += 2
         return c + 1
 
+    def force(tree):
+        now_ms[0] += 20
+        return real_force(tree)
+
+    monkeypatch.setattr(profiling.time, "perf_counter", lambda: now_ms[0] / 1000)
+    monkeypatch.setattr(profiling, "force", force)
     carry0 = torch.zeros(4)
     sec = profiling.device_time(body, carry0, iters=20, short_iters=5, reps=3)
-    assert abs(sec - 0.002) < 0.0005, sec
+    assert abs(sec - 0.002) < 1e-12, sec
     assert torch.equal(carry0, torch.zeros(4))
 
 

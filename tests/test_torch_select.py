@@ -321,7 +321,7 @@ def test_pack_rejects_bad_inputs():
         ls.pack(sel(w0=torch.zeros(8, dtype=torch.float64)))
     with pytest.raises(ValueError, match="shape"):
         ls.pack(sel(w0=torch.zeros(7)))
-    with pytest.raises(ValueError, match="elsewhere"):
+    with pytest.raises(ValueError, match="must be"):
         ls.pack(sel(Ml=torch.zeros((56, 8))))
     with pytest.raises(ValueError, match="contiguous"):
         ls.pack(sel(Ml=torch.zeros((8, 57)).T))
@@ -343,13 +343,6 @@ def test_pack_rejects_bad_inputs():
         ls.pack(_kernel_form([([(m, st.default_leaves())], dataclasses.replace(a, w0=1.0))]))
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         ls.lane_select(sel())
-
-
-def test_lane_select_counts_in_graphs():
-    """The kernel's launch counter is one a captured graph advances on
-    every replay."""
-    from mbe_tpu_torch.utils import graphs
-    assert ls in graphs.KERNELS
 
 
 def test_args_fit_a_kernel_parameter_block():

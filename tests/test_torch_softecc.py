@@ -21,7 +21,7 @@ from mbe_tpu.ops import bits as jbits
 from mbe_tpu.ops.pallas import softecc as jsoftecc
 from mbe_tpu.tables import T as JT
 from mbe_tpu_torch.ops import bits, ecc
-from mbe_tpu_torch.ops.cuda import softecc
+from mbe_tpu_torch.ops.cuda import build, softecc
 
 torch.set_num_threads(1)
 
@@ -46,12 +46,12 @@ def _inputs(code, case, rows=R, seed=42):
 @pytest.mark.parametrize("case", REL_CASES)
 @pytest.mark.parametrize("code", CODES)
 def test_plain_keys_match_pallas_interpret(code, case):
-    """The plain soft_decode_keys equals the JAX Pallas kernel (interpret
+    """The plain soft_decode_keys_reference equals the JAX Pallas kernel (interpret
     mode, R = 256, as tests/test_pallas.py runs it), key for key. The
     constant and zero reliabilities leave the tie-break alone to decide."""
     b, rel, idx = _inputs(code, case)
-    got = softecc.soft_decode_keys(torch.from_numpy(b), torch.from_numpy(rel),
-                                   torch.from_numpy(idx), code).numpy()
+    got = softecc.soft_decode_keys_reference(torch.from_numpy(b), torch.from_numpy(rel),
+                                             torch.from_numpy(idx), code).numpy()
     args = (jnp.asarray(b), jnp.asarray(rel), jnp.asarray(idx))
     if code == "golay":
         want = jsoftecc.golay2312_soft_keys(*args, JT.golay_codewords, interpret=True)
@@ -114,8 +114,8 @@ def test_kernel_arithmetic_matches_plain(code, case):
     (no candidate matches)."""
     b, rel, idx = _inputs(code, case, rows=300, seed=5)
     idx[:3] = (-1, 4096, 1 << 20)
-    want = softecc.soft_decode_keys(torch.from_numpy(b), torch.from_numpy(rel),
-                                    torch.from_numpy(idx), code).numpy()
+    want = softecc.soft_decode_keys_reference(torch.from_numpy(b), torch.from_numpy(rel),
+                                              torch.from_numpy(idx), code).numpy()
     np.testing.assert_array_equal(_kernel_emulation(b, rel, idx, code), want)
 
 
@@ -253,13 +253,16 @@ def test_bit_helpers_match_jax():
 
 
 def test_wrapper_runs_plain_on_cpu_and_refuses_other_devices():
-    """CPU tensors take the plain version (no launch counted); a tensor on
-    neither the CPU nor a CUDA device, or an unknown code, raises."""
+    """The soft decoders of ops/ecc.py, the kernel's one caller, run the
+    plain version for CPU tensors (no launch counted); the kernel's entry
+    raises on a tensor on the CPU or meta device, and for an unknown code."""
     b, rel, idx = (torch.from_numpy(x) for x in _inputs("hamstd", "random", rows=8))
-    before = softecc.LAUNCHES
-    softecc.soft_decode_keys(b, rel, idx, "hamstd")
-    assert softecc.LAUNCHES == before
-    with pytest.raises(ValueError, match="no kernel"):
-        softecc.soft_decode_keys(b.to("meta"), rel.to("meta"), idx.to("meta"), "hamstd")
+    before = build.LAUNCHES["soft_decode"].n
+    assert torch.equal(ecc._soft_keys(b, rel, "hamstd"),
+                       softecc.soft_decode_keys_reference(b, rel, idx, "hamstd"))
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match=f"no kernel for device {device}"):
+            softecc.soft_decode_keys(b.to(device), rel.to(device), idx.to(device), "hamstd")
+    assert build.LAUNCHES["soft_decode"].n == before
     with pytest.raises(ValueError, match="unknown code"):
         softecc.soft_decode_keys(b, rel, idx, "golay24")

@@ -8,16 +8,12 @@ forms bit for bit. The kernel itself runs in tests/test_torch_cuda.py on
 the card.
 """
 
-import ast
-import inspect
-
 import numpy as np
 import pytest
 import torch
 
 from mbe_tpu_torch.ops import noise, synth
-from mbe_tpu_torch.ops.cuda import sources
-from mbe_tpu_torch.utils import graphs
+from mbe_tpu_torch.ops.cuda import build, sources
 
 ENTRIES = ["comfort_noise", "generate_noise_with_overlap", "render_tone"]
 DISPATCH = {"comfort_noise": noise.comfort_noise,
@@ -89,9 +85,9 @@ def test_dispatch_on_cpu_returns_the_plain_outputs(entry, c):
     """For CPU tensors each dispatcher runs its plain form: the same bits,
     and no launch counted."""
     args = _inputs(entry, c)
-    before = sources.LAUNCHES
+    before = build.LAUNCHES["sources"].n
     out = DISPATCH[entry](*args)
-    assert sources.LAUNCHES == before
+    assert build.LAUNCHES["sources"].n == before
     _assert_same_bits(out, PLAIN[entry](*args))
 
 
@@ -100,17 +96,6 @@ def test_dispatch_raises_on_other_devices(entry):
     args = [a.to("meta") for a in _inputs(entry, 8)]
     with pytest.raises(ValueError, match="no kernel for device meta"):
         DISPATCH[entry](*args)
-
-
-@pytest.mark.parametrize("entry", ENTRIES)
-def test_kernel_entry_raises_on_cpu(entry):
-    """The kernel entry points launch on CUDA tensors alone: well-formed CPU
-    inputs raise, and nothing is counted."""
-    fn, args = _kernel_call(entry, _inputs(entry, 8))
-    before = sources.LAUNCHES
-    with pytest.raises(ValueError, match="no kernel for device cpu"):
-        fn(*args)
-    assert sources.LAUNCHES == before
 
 
 @pytest.mark.parametrize("entry,index,dtype", [("comfort_noise", 0, torch.int32),
@@ -144,25 +129,6 @@ def test_comfort_noise_rows_out_of_range_raise():
     args[1] = 0
     with pytest.raises(ValueError, match="n must"):
         fn(*args)
-
-
-def test_the_kernel_module_counts_graph_nodes():
-    """utils/graphs carries the sources kernel's LAUNCHES over replays."""
-    assert sources in graphs.KERNELS
-
-
-def test_the_kernel_module_imports_no_plain_form():
-    """ops/cuda/sources.py imports neither ops/noise.py nor ops/synth.py,
-    which import it: the dispatch is theirs alone, with no import cycle."""
-    tree = ast.parse(inspect.getsource(sources))
-    names = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.ImportFrom):
-            names.add(node.module or "")
-            names.update(a.name for a in node.names)
-        elif isinstance(node, ast.Import):
-            names.update(a.name for a in node.names)
-    assert not {n for n in names if "noise" in n or "synth" in n}, names
 
 
 # --- numpy emulations of the kernel's arithmetic ------------------------------

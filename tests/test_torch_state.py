@@ -144,7 +144,7 @@ def test_port_imports_neither_jax_nor_mbe_tpu():
     assert smoke.is_file()
     tools = sorted((PKG.parent / "tools").glob("*_torch*.py"))
     examples = sorted((PKG.parent / "examples").glob("*_torch.py"))
-    assert {"multihost_smoke_torch.py", "slope_torch_step.py"} <= {f.name for f in tools}
+    assert {"multihost_smoke_torch.py", "ab_kernels_torch.py"} <= {f.name for f in tools}
     assert [f.name for f in examples] == ["decode_stream_torch.py"]
     for path in files + [smoke] + tools + examples:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

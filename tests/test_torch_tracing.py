@@ -94,7 +94,7 @@ def mark_log(monkeypatch):
         raise AssertionError("a CPU mark loaded the marks' library")
 
     monkeypatch.setattr(marks, "mark", spy)
-    monkeypatch.setattr(marks, "load_library", no_library)
+    monkeypatch.setattr(marks.MARK, "load", no_library)
     return log
 
 

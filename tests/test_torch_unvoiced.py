@@ -1,7 +1,8 @@
 """The unvoiced stage (kernel B3, ops/cuda/unvoiced.py) on the CPU: its
 plain version against the JAX Pallas kernel (interpret mode) and the JAX
 XLA stage, a numpy emulation of the CUDA kernel's arithmetic against the
-plain version, and the wrapper's dispatch and input checks."""
+plain version, and the caller's dispatch and the kernel entry's input
+checks."""
 
 import numpy as np
 import pytest
@@ -9,7 +10,7 @@ import torch
 
 from mbe_tpu.ops import synth as jsynth
 from mbe_tpu_torch.ops import synth
-from mbe_tpu_torch.ops.cuda import unvoiced
+from mbe_tpu_torch.ops.cuda import build, unvoiced
 
 torch.set_num_threads(1)
 
@@ -184,21 +185,22 @@ def test_kernel_arithmetic_matches_plain(c):
 
 
 def test_wrapper_runs_plain_on_cpu_and_checks_inputs():
-    """On CPU tensors unvoiced_wola is the plain version (no launch
-    counted), and synth.unvoiced_fft is unvoiced_wola; a wrong dtype,
-    shape or layout raises; a device with no kernel raises."""
+    """On CPU tensors synth.unvoiced_fft, the kernel's one caller, runs the
+    plain version (no launch counted); the kernel's entry unvoiced_wola
+    raises for a wrong dtype, shape or layout, and for a device with no
+    kernel (the CPU, meta) after its checks."""
     args = [torch.from_numpy(a) for a in _inputs(24, 3)]
-    before = unvoiced.LAUNCHES
-    got = unvoiced.unvoiced_wola(*args)
+    before = build.LAUNCHES["unvoiced_wola"].n
+    got = synth.unvoiced_fft(*args)
     want = unvoiced.unvoiced_wola_reference(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert all(torch.equal(g, w) for g, w in zip(synth.unvoiced_fft(*args), want))
-    assert unvoiced.LAUNCHES == before
     assert got[0].shape == (160, 24) and got[1].shape == (128, 24)
 
     for i, bad in ((0, args[0].double()), (1, args[1].long()), (2, args[2][:56]),
                    (4, torch.zeros((256, 24))), (5, args[5].T.contiguous().T)):
-        with pytest.raises(ValueError, match="unvoiced_wola"):
+        with pytest.raises(ValueError, match=r"unvoiced_wola: \w+ must be"):
             unvoiced.unvoiced_wola(*args[:i], bad, *args[i + 1:])
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        unvoiced.unvoiced_wola(*(a.to("meta") for a in args))
+    for device in ("cpu", "meta"):
+        with pytest.raises(ValueError, match=f"no kernel for device {device}"):
+            unvoiced.unvoiced_wola(*(a.to(device) for a in args))
+    assert build.LAUNCHES["unvoiced_wola"].n == before

@@ -87,12 +87,6 @@ def setup(args):
     return torch.device(args.device, 0) if args.device == "cuda" else torch.device("cpu")
 
 
-def kernels():
-    from mbe_tpu_torch.ops.cuda import select, softecc, sources, unvoiced, voiced
-    return dict(voiced_sums=voiced, soft_decode=softecc, unvoiced_wola=unvoiced, sources=sources,
-                lane_select=select)
-
-
 def to_int16(pcm):
     import torch
     from mbe_tpu_torch.ops.synth import float_to_short
@@ -158,6 +152,7 @@ def run_worker(args):
 
 
 def check_worker(args, device, torch, dist):
+    from mbe_tpu_torch.ops.cuda import build
     from mbe_tpu_torch.parallel import sharding
     from mbe_tpu_torch.utils import graphs
     assert dist.get_world_size() == NUM_PROCS and dist.get_rank() == args.rank
@@ -178,13 +173,11 @@ def check_worker(args, device, torch, dist):
     for i, (a, b) in enumerate(zip(graphs.leaves(local), full)):
         assert torch.equal(a, b[..., sl]), f"init_state leaf {i}: the slice differs"
 
-    ks = kernels()
-    for m in ks.values():
-        m.LAUNCHES = 0
+    build.zero()
     frames_l = torch.as_tensor(frames[:, sl], device=device)
     sequence = sharding.sharded_sequence(args.codec, mesh)
     shards, pcm, res = sequence(frames_l, sharding.shard_state(local, mesh))
-    launches = {k: m.LAUNCHES for k, m in ks.items()}
+    launches = build.counts()
     if device.type == "cuda":
         # per shard a replay per frame and the eager warm-up step before its capture
         steps = len(mesh) * (T + 1)
@@ -293,8 +286,10 @@ def main(argv=None):
             print("multihost_smoke_torch: no CUDA device; pass --device cpu", file=sys.stderr)
             return 1
         # built once here, so that no child rebuilds a kernel the other loads
-        for m in kernels().values():
-            m.load_library()
+        import mbe_tpu_torch  # noqa: F401  (registers every kernel)
+        from mbe_tpu_torch.ops.cuda import build
+        for kernel in build.KERNELS:
+            kernel.load()
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         logs = [open(Path(tmp) / f"{name}.log", "w+") for name in ("golden", "w0", "w1")]
